@@ -1,0 +1,382 @@
+"""On-card smoke run of the PyTorch port (multiviewstitch_tpu_torch).
+
+    python3 chip_smoke.py
+
+Needs one NVIDIA GPU, nvcc and this repository's sources; imports no jax.
+Phases, in order (any failure raises and the exit code is non-zero):
+  1. device: the card's name and power limit (nvidia-smi)
+  2. build: nvcc builds csrc/*.cu into the git-ignored kernel directory
+  3. kernels: K1 (consistency), K2 (sampling votes) and K3 (raster), each
+     against its plain PyTorch version on the card at the main path's
+     shapes (config-2: 5 x 480 x 640 sphere disparities; K3 also on a
+     ~100k-face sphere and a close-up giant face); median of 20 timed runs
+     per side (CUDA events)
+  4. the align slice at config-2 (2 sequences x 5 frames at 640x480,
+     max_keypoints 512, TSDF grid 256) through ``cli.run_align``: render,
+     prep, edge sweep + solve, fuse, TSDF, trim + write; checks the
+     recovered similarity, the fused cloud's RMSE and that every kernel
+     launched during the run; then once more with the second sequence's
+     camera ring turned by half a frame step, so that no keyframe pair
+     shares a pose and RANSAC has to reject outliers
+  5. the CLI: ``align --demo --device cuda``
+  6. profile: each stage of the warm slice under torch.profiler; device
+     busy time is the union of the device-side events' intervals
+The line before the last holds the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+if not os.path.isdir(os.path.join(REPO, "multiviewstitch_tpu_torch")):
+    raise SystemExit("chip_smoke.py: run it from a checkout of the repository "
+                     "(multiviewstitch_tpu_torch/ not found beside it)")
+sys.path.insert(0, REPO)
+
+from multiviewstitch_tpu_torch import kernels  # noqa: E402
+from multiviewstitch_tpu_torch.cli import (  # noqa: E402
+    build_demo_sequences, demo_config, demo_transform, run_align)
+from multiviewstitch_tpu_torch.kernels import _build  # noqa: E402
+
+CFG = demo_config().replace(max_keypoints=512)    # config-2
+W, H, N_FRAMES, GRID = 640, 480, 5, 256
+GT_S, GT_T = 1.3, (0.15, -0.1, 0.2)
+YAW_DEG = 45.0 / (N_FRAMES - 1) / 2               # half a frame step
+SOURCES = {
+    "consistency": ("multiviewstitch_tpu_torch/csrc/consistency.cu",
+                    "multiviewstitch_tpu/ops/pallas_gather.py:111"),
+    "sampling_votes": ("multiviewstitch_tpu_torch/csrc/sampling.cu",
+                       "multiviewstitch_tpu/ops/pallas_gather.py:111"),
+    "raster": ("multiviewstitch_tpu_torch/csrc/raster.cu",
+               "multiviewstitch_tpu/ops/pallas_raster.py:302"),
+}
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def time_ms(fn, reps=20):
+    """Median of ``reps`` runs of fn, each between two CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+
+def phase_device():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke.py: torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    smi_line = smi.stdout.strip().splitlines()[0] if smi.stdout else ""
+    log(f"device: {name} (count {torch.cuda.device_count()}); torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
+    return name, smi_line
+
+
+def phase_build():
+    t0 = time.perf_counter()
+    path = _build.build(verbose=True)
+    _build.load()
+    log(f"build: {path} in {time.perf_counter() - t0:.2f} s "
+        f"(nvcc {'ran' if _build.build_seconds else 'cached'})")
+
+
+def config2_sequences(dev, yaw_deg=0.0):
+    return build_demo_sequences(dev, n_frames=N_FRAMES, width=W, height=H,
+                                gt=demo_transform(s=GT_S, t=GT_T),
+                                yaw_deg=yaw_deg)
+
+
+def phase_kernels(dev):
+    """Each kernel against its plain version at the main path's shapes."""
+    from multiviewstitch_tpu_torch.ops import consistency as tc
+    from multiviewstitch_tpu_torch.ops import point_sampling as tps
+    from multiviewstitch_tpu_torch.ops import rasterizer as tr
+    from multiviewstitch_tpu_torch.pipeline.fixtures import (uv_sphere,
+                                                             ring_cameras)
+    from multiviewstitch_tpu_torch.core.cameras import CameraBatch
+
+    seqs, _, base, _ = config2_sequences(dev)
+    d, cams = seqs[0].disparity, seqs[0].cams
+    rec = {}
+
+    kw = dict(min_dsp=CFG.min_dsp, max_dsp=CFG.max_dsp,
+              reproj_err=CFG.reproj_err)
+    got = tc.check_consistency(d, cams, **kw)
+    ref = tc.check_consistency_reference(d, cams, **kw)
+    agree = ((got > 0) == (ref > 0)).float().mean().item()
+    both = (got > 0) & (ref > 0)
+    assert agree >= 0.9999, f"K1 kept-mask agreement {agree}"
+    assert torch.equal(got[both], ref[both]), "K1 values differ"
+    assert both.sum() > 0.3 * (d > 0).sum(), "K1 kept too little"
+    rec["consistency"] = dict(
+        max_abs_err=(got - ref).abs().max().item(),
+        ms=time_ms(lambda: tc.check_consistency(d, cams, **kw)),
+        plain_ms=time_ms(lambda: tc.check_consistency_reference(d, cams,
+                                                                 **kw)))
+    log(f"K1 consistency {tuple(d.shape)}: mask agreement {agree:.6f}, "
+        f"kernel {rec['consistency']['ms']:.3f} ms, plain "
+        f"{rec['consistency']['plain_ms']:.3f} ms")
+
+    dc = got
+    op = tps.sample_oriented_points(
+        dc, cams, min_dsp=CFG.min_dsp, max_dsp=CFG.max_dsp,
+        sample_radius=CFG.sample_radius, nbr_num=CFG.nbr_frm_num,
+        nbr_step=CFG.nbr_frm_step, dsp_err=CFG.dsp_err,
+        conf_min=CFG.conf_min)
+    r = CFG.sample_radius
+    pts_s = op.points.reshape(N_FRAMES, len(range(0, H, r)),
+                              len(range(0, W, r)), 3).contiguous()
+    vk = dict(nbr_num=CFG.nbr_frm_num, nbr_step=CFG.nbr_frm_step,
+              min_dsp=CFG.min_dsp, max_dsp=CFG.max_dsp, dsp_err=CFG.dsp_err)
+    got = tps.sampling_votes(pts_s, dc, cams, **vk)
+    ref = tps.sampling_votes_reference(pts_s, dc, cams, **vk)
+    agree = (got == ref).float().mean().item()
+    assert agree >= 0.9999, f"K2 conf agreement {agree}"
+    rec["sampling_votes"] = dict(
+        max_abs_err=(got - ref).abs().max().item(),
+        ms=time_ms(lambda: tps.sampling_votes(pts_s, dc, cams, **vk)),
+        plain_ms=time_ms(lambda: tps.sampling_votes_reference(pts_s, dc,
+                                                              cams, **vk)))
+    log(f"K2 sampling votes {tuple(pts_s.shape[:3])}: conf agreement "
+        f"{agree:.6f}, kernel {rec['sampling_votes']['ms']:.3f} ms, plain "
+        f"{rec['sampling_votes']['plain_ms']:.3f} ms")
+
+    def raster_case(name, verts, faces, rcams, h, w, main=False):
+        uvz, fi, ok = tr.project_vertices(
+            torch.as_tensor(verts, device=dev),
+            torch.as_tensor(faces, device=dev),
+            torch.ones(len(faces), dtype=torch.bool, device=dev), rcams)
+        got = tr.raster(uvz, fi, ok, height=h, width=w)
+        ref = tr.raster_reference(uvz, fi, ok, height=h, width=w)
+        hit_g, hit_r = got > 0, ref > 0
+        n_diff = int((hit_g != hit_r).sum())
+        assert hit_r.any(), f"K3 {name}: nothing rendered"
+        assert n_diff <= 0.001 * int(hit_r.sum()), f"K3 {name}: coverage"
+        both = hit_g & hit_r
+        rel = ((got - ref).abs() / ref.clamp_min(1e-30))[both]
+        assert rel.numel() == 0 or rel.max().item() <= 1e-6, \
+            f"K3 {name}: values"
+        ms = time_ms(lambda: tr.raster(uvz, fi, ok, height=h, width=w))
+        pms = time_ms(lambda: tr.raster_reference(uvz, fi, ok, height=h,
+                                                  width=w))
+        log(f"K3 raster {name}: {len(faces)} faces x {uvz.shape[0]} frames "
+            f"at {w}x{h}, coverage diff {n_diff}, kernel {ms:.3f} ms, plain "
+            f"{pms:.3f} ms")
+        if main:
+            rec["raster"] = dict(max_abs_err=(got - ref).abs().max().item(),
+                                 ms=ms, plain_ms=pms)
+        return got
+
+    raster_case("config-2 sphere", base.vertices, base.faces, base.cams, H,
+                W, main=True)
+    v100, f100 = uv_sphere(224, 224, bumps=0.15)
+    raster_case("100k-face sphere", v100, f100,
+                ring_cameras(N_FRAMES, width=W, img_height=H, arc_deg=45.0,
+                             length_focal=500.0, device=dev), H, W)
+    giant = np.asarray([[-20, -20, 2.0], [20, -20, 2.0], [20, 20, 2.0],
+                        [-20, 20, 2.0]], np.float32)
+    K = torch.tensor([[500.0, 0, (W - 1) / 2], [0, 500.0, (H - 1) / 2],
+                      [0, 0, 1]], device=dev)
+    gcam = CameraBatch(K[None], torch.eye(3, device=dev)[None],
+                       torch.zeros(1, 3, device=dev), W, H)
+    img = raster_case("close-up giant faces", giant,
+                      np.asarray([[0, 1, 2], [0, 2, 3]], np.int32), gcam, H,
+                      W)
+    assert torch.allclose(img, torch.full_like(img, 0.5), atol=1e-5)
+    torch.cuda.synchronize()
+    return rec
+
+
+def rmse_to(points, verts, dev):
+    p = torch.as_tensor(points, device=dev)
+    v = torch.as_tensor(verts, device=dev)
+    d2 = torch.cat([torch.cdist(c, v).min(1).values ** 2
+                    for c in p.split(8192)])
+    return float(d2.mean().sqrt())
+
+
+def synced_timer(t):
+    """A ``run_align`` stage hook that stores each stage's synced wall
+    seconds in ``t``."""
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t[name] = time.perf_counter() - t0
+        return out
+    return stage
+
+
+def run_slice(dev, workdir, yaw_deg=0.0, stage=None):
+    """The config-2 align slice through the port's entry points; returns
+    (stage seconds, gt, result, points, normals, moved scene, mesh)."""
+    t = {}
+    stage = stage or synced_timer(t)
+    seqs, gt, _, moved = stage("render_s",
+                               lambda: config2_sequences(dev, yaw_deg))
+    res, pts, nrm, v, f = run_align(seqs, CFG, GRID, workdir, stage)
+    t["total_s"] = sum(t.values())
+    return t, gt, res, pts, nrm, moved, (v, f)
+
+
+def check_slice(name, dev, gt, res, pts, nrm, moved, mesh):
+    from multiviewstitch_tpu_torch.core.transforms import rotation_angle_deg
+    T = res.transforms[0]
+    s_err = abs(float(T.s) - GT_S) / GT_S
+    ang = rotation_angle_deg(T.R, gt.R)
+    t_err = float(np.linalg.norm(T.t.numpy() - gt.t.numpy()))
+    rmse = rmse_to(pts, moved.vertices, dev)
+    v, f = mesh
+    log(f"slice {name}: s {float(T.s):.5f} (gt {GT_S}), rotation error "
+        f"{ang:.4f} deg, translation error {t_err:.5f}, keyframes "
+        f"{res.keyframes}, residual {res.residuals[0]:.5f}, fused points "
+        f"{len(pts)}, fused RMSE {rmse:.5f}, mesh {len(v)} verts / "
+        f"{len(f)} faces")
+    assert s_err <= 0.05, f"{name}: scale {float(T.s)} vs {GT_S}"
+    assert ang < 3.0, f"{name}: rotation error {ang} deg"
+    assert t_err < 0.08, f"{name}: translation error {t_err}"
+    assert len(pts) > 2000 and np.isfinite(pts).all() and \
+        np.isfinite(nrm).all()
+    assert rmse < 0.05, f"{name}: fused-cloud RMSE {rmse}"
+    assert len(v) > 500 and len(f) > 500
+
+
+def phase_slice(dev):
+    with tempfile.TemporaryDirectory() as warm_dir:
+        run_slice(dev, warm_dir)                     # warm-up
+    with tempfile.TemporaryDirectory() as wd:
+        kernels.reset_launch_counts()
+        t, gt, res, pts, nrm, moved, mesh = run_slice(dev, wd)
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        for name in ("SRT.txt", "PSR.npts", "Model.obj"):
+            assert os.path.getsize(os.path.join(wd, name)) > 0, name
+    check_slice("config-2", dev, gt, res, pts, nrm, moved, mesh)
+    for name in kernels.KERNELS:
+        assert launches[name] > 0, f"{name} was not launched by the slice"
+    log("slice stage wall times (warm, synced): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in t.items()))
+    log(f"launches during the slice: {launches}")
+    with tempfile.TemporaryDirectory() as wd:
+        t, gt, res, pts, nrm, moved, mesh = run_slice(dev, wd, YAW_DEG)
+    check_slice(f"config-2, second ring turned {YAW_DEG} deg", dev, gt, res,
+                pts, nrm, moved, mesh)
+    assert res.residuals[0] > 0, "turned ring: the solve should not be exact"
+    log("turned-ring stage wall times (warm, synced): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in t.items()))
+    return launches
+
+
+def device_busy_us(prof):
+    """(busy us, event count): the union of the device-side (kernel,
+    memcpy, memset) events' intervals of one profiled region."""
+    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in iv:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy, len(iv)
+
+
+def phase_profile(dev):
+    """Each stage of the warm config-2 slice under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    rows = {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy, n = device_busy_us(prof)
+        rows[name] = (wall, busy, n, prof)
+        return out
+
+    with tempfile.TemporaryDirectory() as wd:
+        run_slice(dev, wd, stage=stage)
+    tot_wall = sum(r[0] for r in rows.values())
+    tot_busy = sum(r[1] for r in rows.values())
+    assert tot_busy > 0, "the profiler saw no device-side events"
+    for name, (wall, busy, n, prof) in rows.items():
+        log(f"profile {name}: wall {wall * 1e3:.3f} ms (profiled), device "
+            f"busy {busy / 1e3:.3f} ms ({100 * busy / 1e6 / wall:.1f} %), "
+            f"{n} device events")
+        by_name = {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                us, k = by_name.get(e.name, (0.0, 0))
+                by_name[e.name] = (us + e.time_range.elapsed_us(), k + 1)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+        log("    top device events: " + "; ".join(
+            f"{nm[:60]} {us / 1e3:.3f} ms x{k}" for nm, (us, k) in top))
+    log(f"profile total: wall {tot_wall:.4f} s (profiled), device busy "
+        f"{tot_busy / 1e6:.4f} s ({100 * tot_busy / 1e6 / tot_wall:.1f} %)")
+
+
+def phase_cli():
+    from multiviewstitch_tpu_torch.cli import main
+    with tempfile.TemporaryDirectory() as wd:
+        t0 = time.perf_counter()
+        rc = main(["align", "--demo", "--device", "cuda", "--workdir", wd,
+                   "--force"])
+        assert rc == 0, f"cli align returned {rc}"
+        for name in ("SRT.txt", "PSR.npts", "Model.obj"):
+            assert os.path.getsize(os.path.join(wd, "Result", name)) > 0
+    log(f"cli align --demo --device cuda: rc 0 in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+
+def main():
+    name, smi_line = phase_device()
+    dev = torch.device("cuda")
+    phase_build()
+    rec = phase_kernels(dev)
+    launches = phase_slice(dev)
+    phase_cli()
+    phase_profile(dev)
+    out = []
+    for k in kernels.KERNELS:
+        src, replaces = SOURCES[k]
+        out.append(dict(name=k, route="cuda", source=src, replaces=replaces,
+                        launches=launches[k], **rec[k]))
+    print(smi_line, flush=True)
+    print(json.dumps({"kernels": out}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,23 @@
+"""multiviewstitch_tpu_torch — the PyTorch / CUDA port of multiviewstitch_tpu.
+
+Runs the ``align`` path (the reference's -a 1 AlignmentSeq) on one NVIDIA
+H100: synthetic inputs rendered with the port's rasterizer, per-sequence
+prep (view synthesis, SIFT, unprojection), the batched edge sweep, the SRT
+solve and greedy chain, fusion (consistency check, oriented point sampling)
+and TSDF reconstruction. The JAX package beside it is the reference the
+port is tested against; this package imports ``torch`` and never ``jax``.
+
+Package layout (mirrors multiviewstitch_tpu):
+  core/      cameras, similarity transforms
+  ops/       rasterizer (K3), consistency (K1), point_sampling (K2),
+             view_synth, features, match, filters, tsdf
+  solvers/   srt (Kabsch + RANSAC), unionfind
+  pipeline/  fixtures, match_edges, align_seq
+  io/        srt (SRT.txt)
+  csrc/      CUDA C++ sources of K1-K3 (sm_90a)
+  kernels/   nvcc build + ctypes wrappers + launch counts
+  cli.py     ``align`` entry point
+  interop.py numpy -> torch converters for cameras, similarities, sequences
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,248 @@
+"""mvs CLI of the PyTorch port: ``align`` (the reference's -a 1
+AlignmentSeq, Processor.cpp:835-1106).
+
+Usage:
+  python -m multiviewstitch_tpu_torch.cli align --demo --workdir /tmp/mvs
+  python -m multiviewstitch_tpu_torch.cli align --demo --device cpu --grid 48
+
+Writes Result/SRT.txt, Result/PSR.npts and Result/Model.obj under
+--workdir. The flags are those of ``multiviewstitch_tpu.cli align`` plus
+--device (default cuda; there is no fallback to the CPU). Paths not ported
+yet — --config ingest, segment, --refine, --backend poisson, all_seq_proj,
+--write-mesh, --debug-artifacts and the deform / render / pipeline / bench
+commands — are refused with a message and a non-zero exit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+# options of the JAX CLI this port does not implement yet (refused, never
+# silently ignored)
+_NOT_PORTED_CMDS = ("deform", "render", "pipeline", "bench")
+_NOT_PORTED_KEYS = ("segment", "all_seq_proj", "write_mesh")
+
+
+def _log(msg: str):
+    print(f"[mvs] {msg}", flush=True)
+
+
+def demo_config():
+    """The demo's StitchConfig: tests/test_e2e_align.py's CFG (config-2
+    is this with max_keypoints=512)."""
+    from multiviewstitch_tpu.config import StitchConfig
+    return StitchConfig().replace(
+        view_count=1, min_match_count=7, iter_num=256, sample_interval=4,
+        ssd_win=3, ssd_err=40.0, reproj_err=4, pixel_err=12.0,
+        adapt_pixel_err_ratio=0.6, hl_margin_ratio=0.02,
+        hr_margin_ratio=0.02, vl_margin_ratio=0.02, vr_margin_ratio=0.02,
+        min_dsp=1e-3, max_dsp=10.0, max_keypoints=256, nbr_frm_num=1,
+        conf_min=0.5, dsp_err=0.05)
+
+
+def demo_transform(s: float = 1.25, t=(0.1, -0.05, 0.15)):
+    """The demo's ground-truth similarity (14.3 degrees about +y)."""
+    from .core.transforms import Similarity
+    R = np.array([[0.9689124, 0.0, 0.24740396], [0.0, 1.0, 0.0],
+                  [-0.24740396, 0.0, 0.9689124]], np.float32)
+    return Similarity(torch.tensor(s, dtype=torch.float32),
+                      torch.as_tensor(R), torch.tensor(t, dtype=torch.float32))
+
+
+def build_demo_sequences(device, n_frames=5, width=128, height=96,
+                         gt=None, yaw_deg=0.0):
+    """Two bumpy-sphere sequences related by ``gt`` (default
+    demo_transform()), rendered on ``device``; the second sequence's camera
+    ring is turned by ``yaw_deg``. Returns (seqs, gt, base, moved)."""
+    from .pipeline.align_seq import Sequence
+    from .pipeline.fixtures import make_scene, textured_views
+    gt = demo_transform() if gt is None else gt
+    kw = dict(n_frames=n_frames, width=width, height=height, bumps=0.15,
+              n_lat=64, n_lon=96, arc_deg=45.0, device=device)
+    base = make_scene(**kw)
+    moved = make_scene(transform=gt, yaw_deg=yaw_deg, **kw)
+    seqs = [Sequence(textured_views(base), base.disparity, base.cams),
+            Sequence(textured_views(moved), moved.disparity, moved.cams)]
+    return seqs, gt, base, moved
+
+
+def _apply_overrides(cfg, overrides):
+    """--set key=value config overrides, coerced to the field's type."""
+    if not overrides:
+        return cfg
+    names = {f.name for f in dataclasses.fields(cfg)}
+    kw = {}
+    for item in overrides:
+        key, _, val = item.partition("=")
+        if key not in names:
+            raise SystemExit(f"unknown config key: {key}")
+        t = getattr(cfg, key).__class__
+        kw[key] = (val.lower() in ("1", "true", "yes") if t is bool
+                   else t(val))
+    return cfg.replace(**kw)
+
+
+def _refusal(args, cfg):
+    """Why this run needs a path the port does not have yet (or None)."""
+    if args.config:
+        return "--config ingest"
+    if args.refine:
+        return f"--refine {args.refine}"
+    if args.backend != "tsdf":
+        return f"--backend {args.backend}"
+    if args.write_mesh:
+        return "--write-mesh"
+    if args.debug_artifacts:
+        return "--debug-artifacts"
+    for key in _NOT_PORTED_KEYS:
+        if getattr(cfg, key):
+            return f"{key}=true"
+    return None
+
+
+def _call(name, fn):
+    return fn()
+
+
+def run_align(seqs, cfg, grid: int, result_dir: str, stage=_call):
+    """align -> fuse -> TSDF -> trim, then write SRT.txt, PSR.npts and
+    Model.obj into ``result_dir``. Each step runs as ``stage(name, fn)``
+    (names prep_s, sweep_solve_s, fuse_s, tsdf_s, trim_write_s), so a
+    caller can time or profile them. Returns (result, points, normals,
+    verts, faces)."""
+    from multiviewstitch_tpu.io.meshio import write_obj, write_npts
+    from .io.srt import save_srt
+    from .ops.tsdf import fuse_multi_sequence
+    from .pipeline.align_seq import align_sequences, fuse_sequences
+    from .pipeline.match_edges import prep_sequence
+    from .solvers.unionfind import retain_largest_component
+
+    preps = stage("prep_s", lambda: [prep_sequence(s, cfg) for s in seqs])
+    result = stage("sweep_solve_s", lambda: align_sequences(
+        seqs, cfg, seed=0, preps=preps))
+    _log(f"pose chain solved (residuals {result.residuals})")
+    pts, nrm = stage("fuse_s", lambda: fuse_sequences(seqs, result, cfg))
+    if not (np.isfinite(pts).all() and np.isfinite(nrm).all()):
+        raise FloatingPointError("fuse: non-finite fused points or normals")
+    _log(f"fused cloud: {len(pts)} oriented points")
+    verts, faces, _ = stage("tsdf_s", lambda: fuse_multi_sequence(
+        [s.disparity for s in seqs], [s.cams for s in seqs],
+        result.transforms, grid=grid, min_dsp=cfg.min_dsp,
+        max_dsp=cfg.max_dsp))
+
+    def trim_write():
+        v, f, _ = retain_largest_component(verts, faces)
+        save_srt(os.path.join(result_dir, "SRT.txt"), result.transforms)
+        write_npts(os.path.join(result_dir, "PSR.npts"), pts, nrm)
+        write_obj(os.path.join(result_dir, "Model.obj"), v, None, f)
+        return v, f
+    verts, faces = stage("trim_write_s", trim_write)
+    _log(f"SRT.txt, PSR.npts and Model.obj ({len(verts)} verts / "
+         f"{len(faces)} faces) written")
+    return result, pts, nrm, verts, faces
+
+
+def cmd_align(args) -> int:
+    from multiviewstitch_tpu.io.manifest import StageManifest, hash_arrays
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available "
+                           "(pass --device cpu to run the plain versions)")
+    if not args.demo and not args.config:
+        _log("need --demo (see docs/DATA.md for the --config layout)")
+        return 2
+    cfg = _apply_overrides(demo_config(), args.set)
+    why = _refusal(args, cfg)
+    if why:
+        _log(f"{why} is not ported to multiviewstitch_tpu_torch yet; use "
+             "python -m multiviewstitch_tpu.cli for it")
+        return 2
+
+    t0 = time.perf_counter()
+    seqs, _, _, _ = build_demo_sequences(device)
+    manifest = StageManifest(args.workdir)
+    result_dir = manifest.stage_dir("Result")
+    opts = f"{args.grid}:{args.backend}:{args.device}"
+    in_hash = hash_arrays(
+        cfg=np.frombuffer(repr(cfg).encode(), dtype=np.uint8),
+        opts=np.frombuffer(opts.encode(), dtype=np.uint8),
+        **{f"d{i}": s.disparity.cpu().numpy() for i, s in enumerate(seqs)})
+    if manifest.is_done("align", in_hash) and not args.force:
+        _log("align stage up to date (manifest hash match) — skipping; "
+             "pass --force to recompute")
+        return 0
+
+    _log(f"aligning {len(seqs)} sequences on {device} ...")
+    grid = args.grid or min(1 << cfg.psn_dpt_max, 256)
+    if not args.grid and (1 << cfg.psn_dpt_max) > 256:
+        _log(f"TSDF grid capped at 256 (PsnDptMax {cfg.psn_dpt_max} -> "
+             f"{1 << cfg.psn_dpt_max}); use --grid to override")
+    _, pts, _, verts, faces = run_align(seqs, cfg, grid, result_dir)
+    manifest.mark_done("align", [os.path.join(result_dir, f)
+                                 for f in ("SRT.txt", "PSR.npts",
+                                           "Model.obj")],
+                       input_hash=in_hash,
+                       metrics={"points": len(pts), "verts": len(verts),
+                                "faces": len(faces)})
+    _log(f"align done in {time.perf_counter() - t0:.1f}s")
+    return 0
+
+
+def _not_ported(args) -> int:
+    _log(f"`{args.cmd}` is not ported to multiviewstitch_tpu_torch yet; use "
+         "python -m multiviewstitch_tpu.cli for it")
+    return 2
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="mvs-torch", description=__doc__)
+    sub = ap.add_subparsers(dest="cmd", required=True)
+
+    common = argparse.ArgumentParser(add_help=False)
+    common.add_argument("--workdir", default="./mvs_work")
+    common.add_argument("--config", default=None,
+                        help="legacy reference config.txt (not ported yet)")
+    common.add_argument("--demo", action="store_true",
+                        help="run on synthetic fixtures")
+    common.add_argument("--set", action="append", metavar="KEY=VALUE",
+                        help="override any StitchConfig field")
+    common.add_argument("--device", default="cuda",
+                        help="torch device (default cuda; no CPU fallback)")
+
+    a = sub.add_parser("align", parents=[common])
+    a.add_argument("--grid", type=int, default=None,
+                   help="TSDF grid resolution (default 2^PsnDptMax capped "
+                        "at 256)")
+    a.add_argument("--backend", choices=("tsdf", "poisson"), default="tsdf",
+                   help="surface reconstruction backend (poisson: not "
+                        "ported yet)")
+    a.add_argument("--write-mesh", action="store_true",
+                   help="per-frame Depth2Model OBJ dumps (not ported yet)")
+    a.add_argument("--force", action="store_true",
+                   help="recompute even if the manifest says up to date")
+    a.add_argument("--refine", nargs="?", const="pose_graph", default=None,
+                   choices=("pose_graph", "ba"),
+                   help="view-graph refinement (not ported yet)")
+    a.add_argument("--debug-artifacts", action="store_true",
+                   help="match visualizations (not ported yet)")
+    a.set_defaults(fn=cmd_align)
+    for name in _NOT_PORTED_CMDS:
+        p = sub.add_parser(name, parents=[common], add_help=False)
+        p.set_defaults(fn=_not_ported)
+
+    args, extra = ap.parse_known_args(argv)
+    if args.fn is cmd_align and extra:
+        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,125 @@
+"""Build and load the hand-written CUDA kernels (``csrc/*.cu``).
+
+The sources are compiled with ``nvcc`` into ONE shared library with a plain
+C interface and loaded with ``ctypes``. Nothing here runs at import time:
+the first CUDA call builds (or finds) the library. The build directory is
+keyed on a hash of the sources and flags, so an edited kernel rebuilds and
+an unchanged one is reused.
+
+Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` — without it
+nvcc contracts ``a*b+c`` into one fused multiply-add, while each PyTorch
+elementwise op rounds on its own, which moves ``floor(x+0.5)`` ties and
+edge-function signs at exactly zero between a kernel and its plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+_BUILD_ROOT = os.path.join(os.path.dirname(_CSRC), "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+# C signature of every exported launcher: (argtypes); all return cudaError_t
+_SIGNATURES = {
+    # disp, K, R, t, out, n, h, w, min_dsp, max_dsp, reproj_err^2, stream
+    "mvs_consistency": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
+    # pts_s, disp, K, R, t, conf, n, hs, ws, h, w, nbr_num, nbr_step,
+    # min_dsp, max_dsp, dsp_err, stream
+    "mvs_sampling_votes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _F, _F, _F, _P),
+    # uvz, faces, face_ok, zbuf, n_frames, n_verts, n_faces, h, w, stream
+    "mvs_raster": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None      # wall time of the build in this process (None: cached)
+
+
+def _sources():
+    return sorted(os.path.join(_CSRC, f) for f in os.listdir(_CSRC)
+                  if f.endswith((".cu", ".cuh")))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def library_path() -> str:
+    """Path of the shared library for the current sources and flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(os.path.basename(p).encode())
+        with open(p, "rb") as f:
+            h.update(f.read())
+    return os.path.join(_BUILD_ROOT, h.hexdigest()[:16], "libmvs_kernels.so")
+
+
+def build(verbose: bool = False) -> str:
+    """Compile ``csrc/*.cu`` into the hash-keyed library (no-op if present).
+    Returns the library path."""
+    global build_seconds
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    cus = [p for p in _sources() if p.endswith(".cu")]
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
+    if verbose:
+        cmd.insert(1, "-Xptxas=-v")
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
+    if verbose and (proc.stdout or proc.stderr):
+        print(proc.stdout + proc.stderr, flush=True)
+    os.replace(tmp, out)
+    build_seconds = time.perf_counter() - t0
+    return out
+
+
+def load():
+    """The loaded ``ctypes`` library with every launcher's signature set.
+    Builds on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.mvs_error_string.argtypes = [ctypes.c_int]
+            lib.mvs_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def check(lib, err: int, name: str):
+    """Raise if a launcher returned a CUDA error code."""
+    if err != 0:
+        msg = lib.mvs_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")

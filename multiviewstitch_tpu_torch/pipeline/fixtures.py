@@ -1,0 +1,138 @@
+"""Synthetic scene fixtures: known mesh + known cameras -> rendered RGB-D.
+
+PyTorch counterpart of ``multiviewstitch_tpu/pipeline/fixtures.py``
+(``uv_sphere``, ``ring_cameras``, ``make_scene``, ``textured_views``). The
+reference ships no data, so the demo inputs are disparity maps of a bumpy
+sphere rendered with the port's own rasterizer (K3 on the card).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..core.cameras import CameraBatch, unproject_depth_map
+from ..core.transforms import Similarity, apply_points, inverse
+from ..ops.rasterizer import render_sequence
+
+
+def uv_sphere(n_lat: int = 24, n_lon: int = 32, radius: float = 0.5,
+              bumps: float = 0.0):
+    """UV-sphere mesh (optionally with low-frequency radial bumps) ->
+    (verts [V,3] f32, faces [F,3] i32) as numpy arrays."""
+    lat = np.linspace(0, np.pi, n_lat + 2)[1:-1]
+    lon = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
+    th, ph = np.meshgrid(lat, lon, indexing="ij")
+    r = np.full_like(th, radius)
+    if bumps > 0:
+        r = r * (1.0 + bumps * (np.sin(3 * th) * np.cos(4 * ph) +
+                                0.5 * np.sin(5 * ph + 1.0)))
+    x = r * np.sin(th) * np.cos(ph)
+    y = r * np.cos(th)
+    z = r * np.sin(th) * np.sin(ph)
+    verts = np.stack([x, y, z], -1).reshape(-1, 3).astype(np.float32)
+
+    i = np.arange(n_lat - 1)[:, None]
+    j = np.arange(n_lon)[None, :]
+    j2 = (j + 1) % n_lon
+    a = i * n_lon + j
+    b = i * n_lon + j2
+    c = (i + 1) * n_lon + j
+    d = (i + 1) * n_lon + j2
+    faces = np.stack([np.stack([a, c, d], -1), np.stack([a, d, b], -1)],
+                     axis=2).reshape(-1, 3)
+    return verts, faces.astype(np.int32)
+
+
+def ring_cameras(n: int, width: int = 160, length_focal: float = 120.0,
+                 img_height: int = 120, arc_deg: float = 360.0, *,
+                 yaw_deg: float = 0.0, device) -> CameraBatch:
+    """n cameras on a circle of radius 2 (or a partial arc of ``arc_deg``)
+    in the y=0 plane, all looking at the origin; p_c = R p_w + t.
+    ``yaw_deg`` turns the whole ring about +y."""
+    radius = 2.0
+    K = np.zeros((n, 3, 3), np.float32)
+    K[:, 0, 0] = length_focal
+    K[:, 1, 1] = length_focal
+    K[:, 0, 2] = (width - 1) / 2.0
+    K[:, 1, 2] = (img_height - 1) / 2.0
+    K[:, 2, 2] = 1.0
+    Rs, ts = [], []
+    for i in range(n):
+        if arc_deg >= 360.0:
+            ang = 2 * np.pi * i / max(n, 1)
+        else:
+            step = np.radians(arc_deg) / max(n - 1, 1)
+            ang = (i - (n - 1) / 2) * step
+        ang += np.radians(yaw_deg)
+        center = np.array([radius * np.cos(ang), 0.0, radius * np.sin(ang)])
+        fwd = -center
+        fwd = fwd / np.linalg.norm(fwd)
+        right = np.cross(np.array([0.0, -1.0, 0.0]), fwd)
+        right /= np.linalg.norm(right)
+        down = np.cross(fwd, right)
+        R = np.stack([right, down, fwd])
+        Rs.append(R)
+        ts.append(-R @ center)
+    f32 = dict(dtype=torch.float32, device=device)
+    return CameraBatch(torch.as_tensor(K, **f32),
+                       torch.as_tensor(np.stack(Rs), **f32),
+                       torch.as_tensor(np.stack(ts), **f32), width,
+                       img_height)
+
+
+class Scene(NamedTuple):
+    vertices: np.ndarray         # [V,3]
+    faces: np.ndarray            # [F,3]
+    cams: CameraBatch            # N frames
+    disparity: torch.Tensor      # [N,H,W] rendered disparity
+    gt_transform: Optional[Similarity]
+
+
+def make_scene(n_frames: int = 4, width: int = 160, height: int = 120,
+               bumps: float = 0.12, transform: Optional[Similarity] = None,
+               n_lat: int = 48, n_lon: int = 64, arc_deg: float = 360.0, *,
+               yaw_deg: float = 0.0, device) -> Scene:
+    """Render a bumpy-sphere scene on ``device``. With ``transform``, the
+    world (mesh AND cameras) is mapped through it: two scenes of the same
+    mesh related by a known similarity. ``yaw_deg`` turns the camera ring
+    (not the mesh) about +y, so two scenes share no camera pose."""
+    verts, faces = uv_sphere(n_lat, n_lon, bumps=bumps)
+    cams = ring_cameras(n_frames, width=width, img_height=height,
+                        arc_deg=arc_deg, yaw_deg=yaw_deg, device=device)
+    if transform is not None:
+        s = np.float64(transform.s.cpu().numpy())
+        Rt = transform.R.cpu().numpy().astype(np.float64)
+        tt = transform.t.cpu().numpy().astype(np.float64)
+        verts = (s * (Rt @ verts.T).T + tt).astype(np.float32)
+        Rc = cams.R.cpu().numpy().astype(np.float64)
+        tc = cams.t.cpu().numpy().astype(np.float64)
+        # p'_c = s * p_c: R'_c = R_c R^T, t'_c = s t_c - R'_c t
+        Rc2 = np.einsum("nij,kj->nik", Rc, Rt)
+        tc2 = s * tc - np.einsum("nij,j->ni", Rc2, tt)
+        f32 = dict(dtype=torch.float32, device=device)
+        cams = CameraBatch(cams.K, torch.as_tensor(Rc2, **f32),
+                           torch.as_tensor(tc2, **f32), cams.width,
+                           cams.height)
+    v_t = torch.as_tensor(verts, device=device)
+    f_t = torch.as_tensor(faces, device=device)
+    fmask = torch.ones(faces.shape[0], dtype=torch.bool, device=device)
+    disp = render_sequence(v_t, f_t, fmask, cams, height=height, width=width)
+    return Scene(verts, faces, cams, disp, transform)
+
+
+def textured_views(scene: Scene) -> torch.Tensor:
+    """View-consistent 'photos' [N,H,W] (0..255): albedo is a procedural
+    function of the OBJECT-space surface point, so the same surface point
+    has the same intensity in every view and every transformed copy."""
+    pts, valid = unproject_depth_map(scene.cams, scene.disparity, 1e-6, 1e6)
+    p = pts.reshape(-1, 3)
+    if scene.gt_transform is not None:
+        p = apply_points(inverse(scene.gt_transform.to(p.device)), p)
+    a = (0.5 + 0.22 * torch.sin(23.0 * p[:, 0]) * torch.cos(17.0 * p[:, 1])
+         + 0.18 * torch.sin(31.0 * p[:, 2] + 1.3)
+         + 0.10 * torch.sin(57.0 * (p[:, 0] + p[:, 1] + p[:, 2])))
+    img = torch.where(valid.reshape(-1), a * 255.0, torch.zeros_like(a))
+    return img.reshape(scene.disparity.shape).to(torch.float32)

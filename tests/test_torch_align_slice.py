@@ -1,0 +1,181 @@
+"""The align slice end to end: the port against the JAX package on the JAX
+fixture of tests/test_e2e_align (two 4-frame sequences related by a known
+similarity), and the port's CLI entry point.
+
+Bounds: both recover gt within test_e2e_align's bounds (s 5 %, rotation
+3 deg, translation 0.08); the two solutions agree within 2 % in s and
+1.5 deg in rotation (RANSAC draws differ: JAX threefry, torch Philox);
+both fused clouds have RMSE < 0.05 to the moved mesh and their point
+counts agree within 10 %."""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from multiviewstitch_tpu.ops.tsdf import fuse_multi_sequence as j_fuse_multi
+from multiviewstitch_tpu.pipeline.align_seq import (align_sequences as j_align,
+                                                    fuse_sequences as j_fuse)
+from multiviewstitch_tpu_torch.core.transforms import rotation_angle_deg
+from multiviewstitch_tpu_torch.interop import sequence_from_numpy
+from multiviewstitch_tpu_torch.io.srt import load_srt
+from multiviewstitch_tpu_torch.ops.tsdf import fuse_multi_sequence
+from multiviewstitch_tpu_torch.pipeline.align_seq import (align_sequences,
+                                                          fuse_sequences)
+from multiviewstitch_tpu_torch.solvers.unionfind import (
+    retain_largest_component)
+from test_e2e_align import CFG, build_two_sequences
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _rmse_to(points, verts):
+    d = []
+    for c in range(0, len(points), 4096):
+        chunk = points[c:c + 4096]
+        d.append(np.sqrt(((chunk[:, None] - verts[None]) ** 2).sum(-1)
+                         .min(1)))
+    d = np.concatenate(d)
+    return float(np.sqrt((d ** 2).mean()))
+
+
+def _check_gt(s, R, t, gt):
+    assert abs(s - float(gt.s)) <= 0.05 * float(gt.s)
+    assert rotation_angle_deg(R, np.asarray(gt.R)) < 3.0
+    assert np.linalg.norm(np.asarray(t) - np.asarray(gt.t)) < 0.08
+
+
+@pytest.fixture(scope="module")
+def slice_runs():
+    seq1, seq2, gt, base, moved = build_two_sequences(n_frames=4)
+    jres = j_align([seq1, seq2], CFG, seed=0)
+    jpts, jnrm = j_fuse([seq1, seq2], jres, CFG)
+    jv, jf, _ = j_fuse_multi([np.asarray(s.disparity) for s in (seq1, seq2)],
+                             [s.cams for s in (seq1, seq2)], jres.transforms,
+                             grid=48, min_dsp=CFG.min_dsp,
+                             max_dsp=CFG.max_dsp)
+    tseqs = [sequence_from_numpy(np.asarray(s.gray), np.asarray(s.disparity),
+                                 np.asarray(s.cams.K), np.asarray(s.cams.R),
+                                 np.asarray(s.cams.t), s.cams.width,
+                                 s.cams.height, "cpu") for s in (seq1, seq2)]
+    tres = align_sequences(tseqs, CFG, seed=0)
+    tpts, tnrm = fuse_sequences(tseqs, tres, CFG)
+    tv, tf, _ = fuse_multi_sequence([s.disparity for s in tseqs],
+                                    [s.cams for s in tseqs], tres.transforms,
+                                    grid=48, min_dsp=CFG.min_dsp,
+                                    max_dsp=CFG.max_dsp)
+    return dict(gt=gt, moved=moved, jres=jres, jpts=jpts, jmesh=(jv, jf),
+                tres=tres, tpts=tpts, tnrm=tnrm, tmesh=(tv, tf))
+
+
+def test_both_recover_gt_and_agree(slice_runs):
+    r = slice_runs
+    jT, tT = r["jres"].transforms[0], r["tres"].transforms[0]
+    _check_gt(float(jT.s), np.asarray(jT.R), np.asarray(jT.t), r["gt"])
+    _check_gt(float(tT.s), tT.R.numpy(), tT.t.numpy(), r["gt"])
+    assert abs(float(tT.s) - float(jT.s)) <= 0.02 * float(jT.s)
+    assert rotation_angle_deg(tT.R, np.asarray(jT.R)) < 1.5
+    last = r["tres"].transforms[1]
+    assert float(last.s) == 1.0 and torch.equal(last.R, torch.eye(3))
+    assert len(r["tres"].keyframes) == 1
+
+
+def test_fused_clouds_match_surface_and_each_other(slice_runs):
+    r = slice_runs
+    mv = r["moved"].vertices
+    jr, tr_ = _rmse_to(r["jpts"], mv), _rmse_to(r["tpts"], mv)
+    nj, nt = len(r["jpts"]), len(r["tpts"])
+    print(f"fused points jax {nj} (rmse {jr:.4f}), port {nt} "
+          f"(rmse {tr_:.4f})")
+    assert jr < 0.05 and tr_ < 0.05
+    assert nt > 2000 and abs(nt - nj) <= 0.1 * nj
+    np.testing.assert_allclose(np.linalg.norm(r["tnrm"], axis=1), 1.0,
+                               atol=1e-3)
+
+
+def test_tsdf_meshes_agree(slice_runs):
+    (jv, jf), (tv, tf) = slice_runs["jmesh"], slice_runs["tmesh"]
+    print(f"TSDF mesh jax {len(jv)}/{len(jf)}, port {len(tv)}/{len(tf)}")
+    assert len(tv) > 500 and abs(len(tv) - len(jv)) <= 0.1 * len(jv)
+    kv, kf, _ = retain_largest_component(tv, tf)
+    assert 0 < len(kf) <= len(tf) and kf.max() < len(kv)
+
+
+def test_turned_ring_recovers_gt_through_run_align(tmp_path):
+    """The second sequence's camera ring turned by half a frame step: no
+    keyframe pair shares a pose, so the solve is not exact and RANSAC has
+    to score the matches. Same gt bounds as test_e2e_align."""
+    from multiviewstitch_tpu_torch.cli import (build_demo_sequences,
+                                               demo_config, run_align)
+    seqs, gt, _, moved = build_demo_sequences("cpu", n_frames=5,
+                                              yaw_deg=45.0 / 4 / 2)
+    names = []
+
+    def stage(name, fn):
+        names.append(name)
+        return fn()
+    res, pts, _, verts, faces = run_align(seqs, demo_config(), 32,
+                                          str(tmp_path), stage)
+    assert names == ["prep_s", "sweep_solve_s", "fuse_s", "tsdf_s",
+                     "trim_write_s"]
+    T = res.transforms[0]
+    _check_gt(float(T.s), T.R.numpy(), T.t.numpy(), gt)
+    assert res.residuals[0] > 0 and res.keyframes[0] != (0, 0)
+    assert _rmse_to(pts, moved.vertices) < 0.05
+    assert len(verts) > 0 and len(faces) > 0
+    for f in ("SRT.txt", "PSR.npts", "Model.obj"):
+        assert (tmp_path / f).stat().st_size > 0, f
+
+
+def test_cli_align_demo_writes_results(tmp_path):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["OMP_NUM_THREADS"] = "2"
+    proc = subprocess.run(
+        [sys.executable, "-m", "multiviewstitch_tpu_torch.cli", "align",
+         "--demo", "--device", "cpu", "--grid", "48", "--workdir",
+         str(tmp_path)], cwd=REPO, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    res = tmp_path / "Result"
+    for f in ("SRT.txt", "PSR.npts", "Model.obj"):
+        assert (res / f).stat().st_size > 0, f
+    Ts = load_srt(str(res / "SRT.txt"))
+    assert len(Ts) == 2
+    assert abs(float(Ts[0].s) - 1.25) < 0.1
+    assert float(Ts[1].s) == 1.0
+    assert "jax" not in proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("extra", [
+    ["--refine"], ["--refine", "ba"], ["--backend", "poisson"],
+    ["--write-mesh"], ["--config", "config.txt"], ["--debug-artifacts"],
+    ["--set", "all_seq_proj=true"], ["--set", "segment=1"]])
+def test_cli_refuses_paths_not_ported(tmp_path, extra, capsys):
+    from multiviewstitch_tpu_torch.cli import main
+    args = ["align", "--device", "cpu", "--workdir", str(tmp_path)]
+    if "--config" not in extra:
+        args.append("--demo")
+    assert main(args + extra) == 2
+    assert "not ported" in capsys.readouterr().out
+    assert not (tmp_path / "Result" / "SRT.txt").exists()
+
+
+@pytest.mark.parametrize("cmd", ["deform", "render", "pipeline", "bench"])
+def test_cli_refuses_other_commands(cmd, capsys):
+    from multiviewstitch_tpu_torch.cli import main
+    assert main([cmd, "--demo"]) == 2
+    assert "not ported" in capsys.readouterr().out
+
+
+def test_cli_cuda_without_gpu_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: nothing to refuse")
+    from multiviewstitch_tpu_torch.cli import main
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main(["align", "--demo", "--workdir", str(tmp_path)])
