@@ -57,17 +57,18 @@ def demo_transform(s: float = 1.25, t=(0.1, -0.05, 0.15)):
 
 
 def build_demo_sequences(device, n_frames=5, width=128, height=96,
-                         gt=None, yaw_deg=0.0):
+                         gt=None, arc_center_deg=0.0):
     """Two bumpy-sphere sequences related by ``gt`` (default
-    demo_transform()), rendered on ``device``; the second sequence's camera
-    ring is turned by ``yaw_deg``. Returns (seqs, gt, base, moved)."""
+    demo_transform()), rendered on ``device``; the second sequence's
+    45-degree camera arc is centred at ``arc_center_deg``. Returns (seqs,
+    gt, base, moved)."""
     from .pipeline.align_seq import Sequence
     from .pipeline.fixtures import make_scene, textured_views
     gt = demo_transform() if gt is None else gt
     kw = dict(n_frames=n_frames, width=width, height=height, bumps=0.15,
               n_lat=64, n_lon=96, arc_deg=45.0, device=device)
     base = make_scene(**kw)
-    moved = make_scene(transform=gt, yaw_deg=yaw_deg, **kw)
+    moved = make_scene(transform=gt, arc_center_deg=arc_center_deg, **kw)
     seqs = [Sequence(textured_views(base), base.disparity, base.cams),
             Sequence(textured_views(moved), moved.disparity, moved.cams)]
     return seqs, gt, base, moved

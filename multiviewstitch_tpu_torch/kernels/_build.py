@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` into ONE shared library with a plain
-C interface and loaded with ``ctypes``. Nothing here runs at import time:
+Each source is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into ONE shared library with a plain
+C interface, loaded with ``ctypes``. Nothing here runs at import time:
 the first CUDA call builds (or finds) the library. The build directory is
 keyed on a hash of the sources and flags, so an edited kernel rebuilds and
 an unchanged one is reused.
@@ -26,7 +27,7 @@ _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 _BUILD_ROOT = os.path.join(os.path.dirname(_CSRC), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,8 +41,10 @@ _SIGNATURES = {
     # min_dsp, max_dsp, dsp_err, stream
     "mvs_sampling_votes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _F, _F, _F, _P),
-    # uvz, faces, face_ok, zbuf, n_frames, n_verts, n_faces, h, w, stream
-    "mvs_raster": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # uvz, faces, face_ok, rec, meta (+ counts), start, items, item_cap,
+    # bins, capacity, zbuf, n_frames, n_verts, n_faces, h, w, stream
+    "mvs_raster": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I,
+                   _I, _I, _P),
 }
 
 _lock = threading.Lock()
@@ -76,27 +79,51 @@ def library_path() -> str:
     return os.path.join(_BUILD_ROOT, h.hexdigest()[:16], "libmvs_kernels.so")
 
 
+def _run_all(cmds, verbose: bool):
+    """Run the commands as processes started together; raise with the
+    output of those that failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    try:
+        logs = [p.communicate()[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [f"{' '.join(c)}\n{log}" for c, p, log in zip(cmds, procs, logs)
+              if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    if verbose and any(logs):
+        print("".join(logs), flush=True)
+
+
 def build(verbose: bool = False) -> str:
-    """Compile ``csrc/*.cu`` into the hash-keyed library (no-op if present).
-    Returns the library path."""
+    """Compile ``csrc/*.cu`` into the hash-keyed library (no-op if present):
+    one nvcc process per source, all started together, then one link.
+    ``verbose`` prints ptxas's register and spill report. Returns the
+    library path."""
     global build_seconds
     out = library_path()
     if os.path.exists(out):
         return out
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    cus = [p for p in _sources() if p.endswith(".cu")]
+    nvcc = _nvcc()
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cus]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
+    os.makedirs(tmp, exist_ok=True)
+    cus = [p for p in _sources() if p.endswith(".cu")]
+    objs = [os.path.join(tmp, os.path.basename(p) + ".o") for p in cus]
+    lib = os.path.join(tmp, "lib.so")
+    ptxas = ["-Xptxas=-v"] if verbose else []
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}")
-    if verbose and (proc.stdout or proc.stderr):
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, out)
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", src, "-o", obj]
+                  for src, obj in zip(cus, objs)], verbose)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]], False)
+        os.replace(lib, out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
     return out
 

@@ -7,9 +7,10 @@ in screen space (exact perspective-correct 1/z).
 
 The JAX package splits faces into size classes (tile passes, a compacted
 scatter ladder, a full-frame pass, two Pallas kernels). Here one kernel
-(K3, ``csrc/raster.cu``) walks every face's clipped pixel bbox, so any face
-size renders exactly and ``overflow`` is always 0. ``raster_reference`` is
-its plain PyTorch version, taken for CPU tensors.
+(K3, ``csrc/raster.cu``) bins every face into the 16x16 tiles its clipped
+pixel bbox touches and z-maxes each tile on chip, so any face size renders
+exactly and ``overflow`` is always 0. ``raster_reference`` is its plain
+PyTorch version, taken for CPU tensors.
 """
 
 from __future__ import annotations
@@ -47,6 +48,21 @@ def project_vertices(vertices, faces, face_mask, cams: CameraBatch):
     return uvz, f, ok.contiguous()
 
 
+def clipped_bboxes(ua, va, face_ok, *, height: int, width: int):
+    """K3's cull and bbox rule for faces with corner coordinates ua, va
+    [...,3]: (signed area, x0, x1, y0, y1, live). The bbox is the
+    image-clipped [floor(min), ceil(max)] (float pixel indices); live faces
+    have face_ok, |area| > 1e-12 and a non-empty clipped bbox."""
+    area = ((ua[..., 1] - ua[..., 0]) * (va[..., 2] - va[..., 0]) -
+            (va[..., 1] - va[..., 0]) * (ua[..., 2] - ua[..., 0]))
+    x0 = ua.min(-1).values.floor().clamp_min(0.0)
+    x1 = ua.max(-1).values.ceil().clamp_max(width - 1.0)
+    y0 = va.min(-1).values.floor().clamp_min(0.0)
+    y1 = va.max(-1).values.ceil().clamp_max(height - 1.0)
+    live = face_ok & (area.abs() > 1e-12) & (x0 <= x1) & (y0 <= y1)
+    return area, x0, x1, y0, y1, live
+
+
 def raster_reference(uvz, faces, face_ok, *, height: int, width: int):
     """Plain PyTorch version of K3: every (face, pixel) pair of each face's
     image-clipped bbox [floor(min), ceil(max)] is evaluated with the edge
@@ -60,13 +76,8 @@ def raster_reference(uvz, faces, face_ok, *, height: int, width: int):
         ua = uvz[i, :, 0][fl]                             # [F,3]
         va = uvz[i, :, 1][fl]
         za = uvz[i, :, 2][fl]
-        area = ((ua[:, 1] - ua[:, 0]) * (va[:, 2] - va[:, 0]) -
-                (va[:, 1] - va[:, 0]) * (ua[:, 2] - ua[:, 0]))
-        x0 = ua.min(1).values.floor().clamp_min(0.0)
-        x1 = ua.max(1).values.ceil().clamp_max(width - 1.0)
-        y0 = va.min(1).values.floor().clamp_min(0.0)
-        y1 = va.max(1).values.ceil().clamp_max(height - 1.0)
-        live = face_ok[i] & (area.abs() > 1e-12) & (x0 <= x1) & (y0 <= y1)
+        area, x0, x1, y0, y1, live = clipped_bboxes(
+            ua, va, face_ok[i], height=height, width=width)
         sel = live.nonzero()[:, 0]
         if sel.numel() == 0:
             continue

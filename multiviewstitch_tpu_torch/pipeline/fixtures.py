@@ -19,9 +19,11 @@ from ..ops.rasterizer import render_sequence
 
 
 def uv_sphere(n_lat: int = 24, n_lon: int = 32, radius: float = 0.5,
-              bumps: float = 0.0):
+              bumps: float = 0.0, seed: int = 0):
     """UV-sphere mesh (optionally with low-frequency radial bumps) ->
-    (verts [V,3] f32, faces [F,3] i32) as numpy arrays."""
+    (verts [V,3] f32, faces [F,3] i32) as numpy arrays. The mesh is
+    deterministic: ``seed`` is taken, as by the JAX fixture, and does not
+    change it."""
     lat = np.linspace(0, np.pi, n_lat + 2)[1:-1]
     lon = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
     th, ph = np.meshgrid(lat, lon, indexing="ij")
@@ -46,13 +48,14 @@ def uv_sphere(n_lat: int = 24, n_lon: int = 32, radius: float = 0.5,
     return verts, faces.astype(np.int32)
 
 
-def ring_cameras(n: int, width: int = 160, length_focal: float = 120.0,
-                 img_height: int = 120, arc_deg: float = 360.0, *,
-                 yaw_deg: float = 0.0, device) -> CameraBatch:
-    """n cameras on a circle of radius 2 (or a partial arc of ``arc_deg``)
-    in the y=0 plane, all looking at the origin; p_c = R p_w + t.
-    ``yaw_deg`` turns the whole ring about +y."""
-    radius = 2.0
+def ring_cameras(n: int, radius: float = 2.0, height: float = 0.0,
+                 width: int = 160, length_focal: float = 120.0,
+                 img_height: int = 120, look_at=(0.0, 0.0, 0.0),
+                 arc_deg: float = 360.0, arc_center_deg: float = 0.0, *,
+                 device) -> CameraBatch:
+    """n cameras on a circle of ``radius`` (or a partial arc of ``arc_deg``
+    centred at ``arc_center_deg``) in the y=height plane, all looking at
+    ``look_at``; p_c = R p_w + t. A full ring always starts at angle 0."""
     K = np.zeros((n, 3, 3), np.float32)
     K[:, 0, 0] = length_focal
     K[:, 1, 1] = length_focal
@@ -60,15 +63,16 @@ def ring_cameras(n: int, width: int = 160, length_focal: float = 120.0,
     K[:, 1, 2] = (img_height - 1) / 2.0
     K[:, 2, 2] = 1.0
     Rs, ts = [], []
+    tgt = np.asarray(look_at, np.float64)
     for i in range(n):
         if arc_deg >= 360.0:
             ang = 2 * np.pi * i / max(n, 1)
         else:
             step = np.radians(arc_deg) / max(n - 1, 1)
-            ang = (i - (n - 1) / 2) * step
-        ang += np.radians(yaw_deg)
-        center = np.array([radius * np.cos(ang), 0.0, radius * np.sin(ang)])
-        fwd = -center
+            ang = (i - (n - 1) / 2) * step + np.radians(arc_center_deg)
+        center = np.array([radius * np.cos(ang), height,
+                           radius * np.sin(ang)])
+        fwd = tgt - center
         fwd = fwd / np.linalg.norm(fwd)
         right = np.cross(np.array([0.0, -1.0, 0.0]), fwd)
         right /= np.linalg.norm(right)
@@ -92,16 +96,17 @@ class Scene(NamedTuple):
 
 
 def make_scene(n_frames: int = 4, width: int = 160, height: int = 120,
-               bumps: float = 0.12, transform: Optional[Similarity] = None,
-               n_lat: int = 48, n_lon: int = 64, arc_deg: float = 360.0, *,
-               yaw_deg: float = 0.0, device) -> Scene:
+               cam_radius: float = 2.0, bumps: float = 0.12, seed: int = 0,
+               transform: Optional[Similarity] = None,
+               n_lat: int = 48, n_lon: int = 64, arc_deg: float = 360.0,
+               arc_center_deg: float = 0.0, *, device) -> Scene:
     """Render a bumpy-sphere scene on ``device``. With ``transform``, the
     world (mesh AND cameras) is mapped through it: two scenes of the same
-    mesh related by a known similarity. ``yaw_deg`` turns the camera ring
-    (not the mesh) about +y, so two scenes share no camera pose."""
-    verts, faces = uv_sphere(n_lat, n_lon, bumps=bumps)
-    cams = ring_cameras(n_frames, width=width, img_height=height,
-                        arc_deg=arc_deg, yaw_deg=yaw_deg, device=device)
+    mesh related by a known similarity."""
+    verts, faces = uv_sphere(n_lat, n_lon, bumps=bumps, seed=seed)
+    cams = ring_cameras(n_frames, radius=cam_radius, width=width,
+                        img_height=height, arc_deg=arc_deg,
+                        arc_center_deg=arc_center_deg, device=device)
     if transform is not None:
         s = np.float64(transform.s.cpu().numpy())
         Rt = transform.R.cpu().numpy().astype(np.float64)

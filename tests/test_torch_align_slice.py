@@ -113,7 +113,7 @@ def test_turned_ring_recovers_gt_through_run_align(tmp_path):
     from multiviewstitch_tpu_torch.cli import (build_demo_sequences,
                                                demo_config, run_align)
     seqs, gt, _, moved = build_demo_sequences("cpu", n_frames=5,
-                                              yaw_deg=45.0 / 4 / 2)
+                                              arc_center_deg=45.0 / 4 / 2)
     names = []
 
     def stage(name, fn):

@@ -8,12 +8,13 @@ JAX package (tests/conftest.py imports jax, hence --noconftest):
 Tolerances: the kernels are built with -fmad=false and follow their plain
 versions' operand order, so K1's kept mask and K2's confidence agree on
 >= 99.99 % of pixels (equal values where both keep) and K3's z-buffer is
-bit-identical (atomicMax of a max is order-free)."""
+bit-identical (a max is order-free, whatever order a tile's bin holds)."""
 
 import numpy as np
 import pytest
 import torch
 
+from multiviewstitch_tpu_torch import kernels
 from multiviewstitch_tpu_torch.ops import consistency as tc
 from multiviewstitch_tpu_torch.ops import point_sampling as tps
 from multiviewstitch_tpu_torch.ops import rasterizer as tr
@@ -47,7 +48,6 @@ def scene(cuda):
 
 
 def _counted(name, fn):
-    from multiviewstitch_tpu_torch import kernels
     before = kernels.launch_counts()[name]
     out = fn()
     torch.cuda.synchronize()
@@ -117,8 +117,130 @@ def test_k3_raster_matches_plain(cuda, case):
         assert got[0, 0, 0] > 0
 
 
+def _tri_uvz(tris, zs):
+    """uvz [1,3T,3] and faces [T,3] of triangles given in pixels."""
+    tris = np.asarray(tris, np.float32).reshape(-1, 3, 2)
+    zs = np.broadcast_to(np.asarray(zs, np.float32), tris.shape[:2])
+    uvz = np.concatenate([tris, zs[..., None]], -1).reshape(1, -1, 3)
+    faces = np.arange(uvz.shape[1], dtype=np.int32).reshape(-1, 3)
+    return uvz, faces
+
+
+def _k3_case(name):
+    """(uvz [N,V,3], faces [F,3], face_ok [N,F], h, w) in numpy."""
+    rng = np.random.default_rng(3)
+    if name == "tile borders":      # edges and corners on 16-px borders
+        uvz, faces = _tri_uvz([[[16, 16], [48, 16], [48, 32]],
+                               [[16, 16], [48, 32], [16, 32]],
+                               [[31, 0], [47, 15], [31, 15]],
+                               [[0, 32], [15, 47], [0, 47]]],
+                              [[0.5, 0.6, 0.7], [0.5, 0.7, 0.4],
+                               [0.3, 0.3, 0.3], [0.9, 0.8, 0.7]])
+        h, w = 48, 64
+    elif name == "one face over every tile":   # 120 is not a tile multiple
+        uvz, faces = _tri_uvz([[[-500, -400], [3000, -300], [-200, 2600]]],
+                              [[0.5, 0.6, 0.7]])
+        h, w = 120, 160
+    elif name == "more pairs than the first bins":   # the rerun
+        uvz, faces = _tri_uvz([[[-500, -400], [3000, -300], [-200, 2600]]] *
+                              6, rng.uniform(0.2, 1.0, size=(6, 3)))
+        h, w = 120, 160
+    elif name == "3000 faces in one tile":     # > one 256-record chunk
+        c = rng.uniform(17.0, 30.0, size=(3000, 1, 2))
+        tris = c + rng.uniform(-0.6, 0.6, size=(3000, 3, 2))
+        uvz, faces = _tri_uvz(tris, rng.uniform(0.2, 1.0, size=(3000, 3)))
+        h, w = 48, 64
+    else:
+        raise KeyError(name)
+    ok = np.ones((uvz.shape[0], len(faces)), bool)
+    return uvz, faces, ok, h, w
+
+
+def _k3_matches_plain(cuda, uvz, faces, ok, h, w):
+    uvz, faces, ok = (torch.as_tensor(a, device=cuda) for a in (uvz, faces,
+                                                                ok))
+    got = _counted("raster", lambda: tr.raster(uvz, faces, ok, height=h,
+                                               width=w))
+    ref = tr.raster_reference(uvz, faces, ok, height=h, width=w)
+    assert torch.equal(got, ref)
+    return got
+
+
+@pytest.mark.parametrize("name", ["tile borders", "one face over every tile",
+                                  "more pairs than the first bins",
+                                  "3000 faces in one tile"])
+def test_k3_binning_cases_match_plain(cuda, name):
+    uvz, faces, ok, h, w = _k3_case(name)
+    got = _k3_matches_plain(cuda, uvz, faces, ok, h, w)
+    if name in ("one face over every tile", "more pairs than the first bins"):
+        assert (got > 0).all()
+        n_tiles = -(-h // 16) * -(-w // 16)
+        assert kernels.raster_pairs == len(faces) * n_tiles   # its own count
+    if name == "3000 faces in one tile":
+        assert (got[0, 16:32, 16:32] > 0).sum() > 100
+        assert (got[0, :16] == 0).all() and (got[0, 32:] == 0).all()
+    if name == "tile borders":
+        assert got[0, 16, 16] > 0 and got[0, 32, 48] > 0
+
+
+def test_k3_frames_with_their_own_face_ok(cuda):
+    verts, faces = uv_sphere(32, 48, bumps=0.15)
+    cams = ring_cameras(3, width=96, img_height=72, arc_deg=60.0,
+                        device=cuda)
+    uvz, fi, ok = tr.project_vertices(
+        torch.as_tensor(verts, device=cuda),
+        torch.as_tensor(faces, device=cuda),
+        torch.ones(len(faces), dtype=torch.bool, device=cuda), cams)
+    keep = np.random.default_rng(5).random(ok.shape) < [[1.0], [0.5], [0.1]]
+    ok = ok & torch.as_tensor(keep, device=cuda)
+    got = _k3_matches_plain(cuda, uvz, fi, ok, 72, 96)
+    hits = (got > 0).flatten(1).sum(1)
+    assert hits[0] > hits[2] > 0
+
+
+@pytest.mark.parametrize("name", ["zero faces", "all faces culled"])
+def test_k3_zero_pairs_writes_zeros(cuda, name):
+    uvz, faces, ok, h, w = _k3_case("tile borders")
+    uvz = np.concatenate([uvz, uvz])
+    if name == "zero faces":
+        faces = faces[:0]
+    ok = np.zeros((2, len(faces)), bool)
+    got = _k3_matches_plain(cuda, uvz, faces, ok, h, w)
+    assert got.shape == (2, h, w) and (got == 0).all()
+    assert kernels.raster_pairs == 0
+
+
+def test_k3_raises_on_out_of_range_face_id(cuda):
+    uvz, faces, ok, h, w = _k3_case("tile borders")
+    faces[2, 1] = uvz.shape[1]
+    with pytest.raises(ValueError, match="out of range"):
+        tr.raster(torch.as_tensor(uvz, device=cuda),
+                  torch.as_tensor(faces, device=cuda),
+                  torch.as_tensor(ok, device=cuda), height=h, width=w)
+
+
+@pytest.mark.parametrize("name", ["3000 faces in one tile",
+                                  "more pairs than the first bins"])
+def test_k3_makes_one_host_read(cuda, name):
+    import warnings
+    uvz, faces, ok, h, w = (torch.as_tensor(a, device=cuda)
+                            if isinstance(a, np.ndarray) else a
+                            for a in _k3_case(name))
+    tr.raster(uvz, faces, ok, height=h, width=w)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            tr.raster(uvz, faces, ok, height=h, width=w)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(c.message) for c in caught
+             if "synchroniz" in str(c.message)]
+    assert len(syncs) == 1, syncs
+
+
 def test_wrappers_check_their_inputs(scene):
-    from multiviewstitch_tpu_torch import kernels
     d, cams = scene
     with pytest.raises(TypeError):
         kernels.consistency(d.double(), cams.K, cams.R, cams.t, min_dsp=0.0,

@@ -110,6 +110,48 @@ def test_sphere_64x96_matches_jax_and_oracle():
                                       (w - 1) / 2, (h - 1) / 2), ORACLE_RTOL)
 
 
+def test_closeup_ring_giant_faces_match_jax_and_oracle():
+    """The grazing close-up ring: a sphere of radius 0.8 at z = 2.5 seen by
+    6 cameras on a 90-degree arc of radius 2.5, aimed at the origin, with
+    the arc centred on the sphere. The middle cameras sit inside it, and
+    its wall crosses their image planes at grazing angles: faces whose
+    clipped bbox exceeds the JAX ladder's tile_large (128 px) and fall to
+    its full-frame pass. (With 8 cameras, two of them see the silhouette
+    edge-on from outside, where float32 interpolation differs from JAX and
+    the oracle by up to 1.8e-5 relative, and JAX's tiled pass leaves a
+    border-clipped face empty that the oracle renders like the port.)"""
+    verts, faces = uv_sphere(32, 48, radius=0.8)
+    verts[:, 2] += 2.5
+    w, h, foc, n = 160, 120, 130.0, 6
+    cams = ring_cameras(n, radius=2.5, width=w, img_height=h,
+                        length_focal=foc, arc_deg=90.0, arc_center_deg=90.0,
+                        device="cpu")
+    uvz, f, ok = tr.project_vertices(torch.as_tensor(verts),
+                                     torch.as_tensor(faces),
+                                     torch.ones(len(faces), dtype=torch.bool),
+                                     cams)
+    # JAX's size measure (render_disparity): the larger clipped bbox side
+    ua, va = uvz[..., 0][:, f.long()], uvz[..., 1][:, f.long()]
+    bw = ua.max(-1).values.clamp(0, w - 1) - ua.min(-1).values.clamp(0, w - 1)
+    bh = va.max(-1).values.clamp(0, h - 1) - va.min(-1).values.clamp(0, h - 1)
+    bb = torch.where(ok, torch.maximum(bw, bh), torch.zeros_like(bw))
+    assert bb.max() > 128, f"no giant face (largest {float(bb.max())})"
+    got = tr.raster(uvz, f, ok, height=h, width=w).numpy()
+    mask = np.ones(len(faces), bool)
+    for i in range(n):
+        K, R, t = (getattr(cams, a)[i].numpy() for a in "KRt")
+        jr = j_render(jnp.asarray(verts), jnp.asarray(faces),
+                      jnp.asarray(mask), JCams(K, R, t, w, h), height=h,
+                      width=w, impl="xla")
+        assert int(jr.overflow) == 0
+        _assert_close(got[i], np.asarray(jr.disparity))
+        pc = (verts @ R.T + t).astype(np.float32)      # camera frame
+        oracle = _oracle_raster(pc, faces[ok[i].numpy()], h, w, foc, foc,
+                                (w - 1) / 2, (h - 1) / 2)
+        _assert_close(got[i], oracle, ORACLE_RTOL)
+    assert (got > 0).mean() > 0.25
+
+
 def test_matches_pallas_raster_faces_on_handled_faces():
     verts, faces = uv_sphere(24, 32, bumps=0.1)
     cams = ring_cameras(2, width=64, img_height=48, arc_deg=40.0,
