@@ -7,14 +7,21 @@ Phases, in order (any failure raises and the exit code is non-zero):
   1. device: the card's name and power limit (nvidia-smi)
   2. build: one nvcc per csrc/*.cu source, all started together, into
      the git-ignored kernel directory
-  3. kernels: K1 (consistency), K2 (sampling votes) and K3 (raster), each
-     against its plain PyTorch version on the card at the main path's
-     shapes (config-2: 5 x 480 x 640 sphere disparities); K3 bit-identical
-     on four cases (the config-2 sphere, a ~100k-face sphere, two close-up
-     giant faces, and a close-up ring of 8 cameras around and inside a
-     100k-face sphere), with each case's largest clipped bbox and (face,
-     tile) pair count (the kernel's own total); median of 20 timed runs
-     per side (CUDA events)
+  3. kernels: K1 (consistency), K2 (the oriented point sampler) and K3
+     (raster), each against its plain PyTorch version on the card. K1 and
+     K2 at three sizes of the sphere scene (640x480): config-2 (5 frames,
+     nbr_num 1), the front-end (8 frames, bench.py's settings, nbr_num 2)
+     and a long sequence (64 frames on the 45-degree arc, the reference's
+     default settings, nbr_num 5; 78.6 MB of disparity, more than L2); K1
+     bit-identical, K2's points bit-identical, conf and the keep mask
+     equal on >= 99.99 % of samples, normals within 1e-6 on >= 99.99 % of
+     the samples both keep. K3 bit-identical on four cases (the config-2
+     sphere, a ~100k-face sphere, two close-up giant faces, and a close-up
+     ring of 8 cameras around and inside a 100k-face sphere), with each
+     case's largest clipped bbox and (face, tile) pair count (the kernel's
+     own total). Each case logs kernel and plain ms (median of 20 timed
+     runs, CUDA events), device us per CUDA kernel (torch.profiler) and
+     the least time the card could take (bound) with its share
   4. the align slice at config-2 (2 sequences x 5 frames at 640x480,
      max_keypoints 512, TSDF grid 256) through ``cli.run_align``: render,
      prep, edge sweep + solve, fuse, TSDF, trim + write; checks the
@@ -51,6 +58,7 @@ sys.path.insert(0, REPO)
 from multiviewstitch_tpu_torch import kernels  # noqa: E402
 from multiviewstitch_tpu_torch.cli import (  # noqa: E402
     build_demo_sequences, demo_config, demo_transform, run_align)
+from multiviewstitch_tpu_torch.config import StitchConfig  # noqa: E402
 from multiviewstitch_tpu_torch.kernels import _build  # noqa: E402
 from multiviewstitch_tpu_torch.ops import rasterizer as tr  # noqa: E402
 
@@ -65,11 +73,33 @@ CLOSE_UP_ARC_CENTER_DEG = 90.0
 SOURCES = {
     "consistency": ("multiviewstitch_tpu_torch/csrc/consistency.cu",
                     "multiviewstitch_tpu/ops/pallas_gather.py:111"),
-    "sampling_votes": ("multiviewstitch_tpu_torch/csrc/sampling.cu",
-                       "multiviewstitch_tpu/ops/pallas_gather.py:111"),
+    "oriented_points": ("multiviewstitch_tpu_torch/csrc/sampling.cu",
+                        "multiviewstitch_tpu/ops/pallas_gather.py:111"),
     "raster": ("multiviewstitch_tpu_torch/csrc/raster.cu",
                "multiviewstitch_tpu/ops/pallas_raster.py:302"),
 }
+# the H100 SXM's published peaks (at its full 700 W power limit)
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+# K1 / K2 sizes: (name, frames, K2 settings). Each renders the config-2
+# sphere scene (45-degree arc, 640x480) and keeps config-2's disparity
+# range and reproj_err 4: the sphere's near side lies at disparity
+# 0.5-0.7, so the reference's default max_dsp 0.5 would drop it.
+_DEFAULTS = StitchConfig()
+K12_SIZES = (
+    ("config-2", N_FRAMES, dict(
+        sample_radius=CFG.sample_radius, nbr_num=CFG.nbr_frm_num,
+        nbr_step=CFG.nbr_frm_step, dsp_err=CFG.dsp_err,
+        conf_min=CFG.conf_min)),
+    ("front-end", 8, dict(             # bench.py's front-end step
+        sample_radius=2, nbr_num=2, nbr_step=1, dsp_err=0.05, conf_min=0.5)),
+    ("long sequence", 64, dict(        # the reference's defaults
+        sample_radius=_DEFAULTS.sample_radius,
+        nbr_num=_DEFAULTS.nbr_frm_num, nbr_step=_DEFAULTS.nbr_frm_step,
+        dsp_err=_DEFAULTS.dsp_err, conf_min=_DEFAULTS.conf_min)),
+)
+K1_KW = dict(min_dsp=CFG.min_dsp, max_dsp=CFG.max_dsp,
+             reproj_err=CFG.reproj_err)
 
 
 def log(msg):
@@ -141,70 +171,158 @@ def kernel_breakdown(fn, reps=5):
     return by_name
 
 
-def largest_bbox(uvz, faces, face_ok, h, w):
-    """(longest side, pixels) of the largest clipped bbox among the faces
-    K3 bins, by the plain version's rule."""
+def bound(n_bytes, flops):
+    """(bound_ms, bound_by): the least time the card could take to move
+    ``n_bytes`` and do ``flops`` float32 operations, and which one sets it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def existing_neighbours(n, offsets):
+    """[n] count of frames f + o (o in offsets) inside 0..n-1."""
+    f = torch.arange(n)
+    return sum(((f + o >= 0) & (f + o < n)).long() for o in offsets)
+
+
+def k1_bound(d):
+    """K1 reads and writes each disparity once (plus the cameras); per valid
+    pixel 25 flops (1/d, unprojection) and per existing neighbour 88 (two
+    projections of 25, an unprojection of 24 and 1/d, two roundings of 4,
+    the error test of 5): csrc/consistency.cu."""
+    n, h, w = d.shape
+    valid = ((d >= CFG.min_dsp) & (d <= CFG.max_dsp)).flatten(1).sum(1).cpu()
+    pairs = int((valid * existing_neighbours(n, (-1, 1))).sum())
+    return bound(8 * n * h * w + 84 * n, 25 * int(valid.sum()) + 88 * pairs)
+
+
+def k2_bound(d, sk):
+    """K2 reads the disparity once (plus cameras and centres) and writes
+    29 B a sample; 25 flops per pixel it unprojects (each sample and its
+    four +-1 neighbours, wrapped), 32 per sample (tangents, cross product,
+    length, normalisation, flip) and 32 per sample and existing neighbour
+    frame (projection, rounding, 1/z, the agreement test):
+    csrc/sampling.cu."""
+    n, h, w = d.shape
+    r = sk["sample_radius"]
+    ys, xs = torch.arange(0, h, r), torch.arange(0, w, r)
+    need = torch.zeros(h, w, dtype=torch.bool)
+    for dy, dx in ((0, 0), (-1, 0), (1, 0), (0, -1), (0, 1)):
+        need[((ys + dy) % h)[:, None], ((xs + dx) % w)[None, :]] = True
+    samples = len(ys) * len(xs)
+    offs = [sg * k * sk["nbr_step"] for k in range(1, sk["nbr_num"] + 1)
+            for sg in (-1, 1)]
+    votes = samples * int(existing_neighbours(n, offs).sum())
+    flops = 25 * n * int(need.sum()) + 32 * n * samples + 32 * votes
+    return bound(4 * n * h * w + 96 * n + 29 * n * samples, flops)
+
+
+def bbox_stats(uvz, faces, face_ok, h, w):
+    """(longest side, pixels of the largest, pixels of all, live faces) of
+    the clipped bboxes of the faces K3 bins, by the plain version's rule."""
     fl = faces.long()
     _, x0, x1, y0, y1, live = tr.clipped_bboxes(
         uvz[..., 0][:, fl], uvz[..., 1][:, fl], face_ok, height=h, width=w)
     bw = torch.where(live, x1 - x0 + 1, 0.0).long()
     bh = torch.where(live, y1 - y0 + 1, 0.0).long()
-    return int(torch.maximum(bw, bh).max()), int((bw * bh).max())
+    return (int(torch.maximum(bw, bh).max()), int((bw * bh).max()),
+            int((bw * bh).sum()), int(live.sum()))
+
+
+def k3_bound(uvz, faces, face_ok, h, w, bbox_px, live):
+    """K3 reads the projected vertices, faces and face mask and writes the
+    z-buffer; ~40 flops per live face (setup) and ~15 per pixel of its
+    clipped bbox (three edge functions)."""
+    n_bytes = (uvz.numel() * 4 + faces.numel() * 4 + face_ok.numel() +
+               uvz.shape[0] * h * w * 4)
+    return bound(n_bytes, 40 * live + 15 * bbox_px)
+
+
+def timed_record(name, run, plain, bound_ms, bound_by):
+    """Kernel and plain ms, device us per CUDA kernel and the bound of one
+    case, logged; returns the JSON record's timing fields."""
+    ms, pms = time_ms(run), time_ms(plain)
+    parts = kernel_breakdown(run)
+    log(f"    {name}, device us per call: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in parts.items()) +
+        f"; total {sum(parts.values()):.1f}")
+    log(f"    {name}: kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+        f"{bound_ms * 1e3:.2f} us ({bound_by}), share of bound "
+        f"{bound_ms / ms:.3f}")
+    return dict(ms=ms, plain_ms=pms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None)
+
+
+def k12_case(name, d, cams, sk):
+    """K1 and K2 against their plain versions on one size; returns their
+    JSON records."""
+    from multiviewstitch_tpu_torch.ops import consistency as tc
+    from multiviewstitch_tpu_torch.ops import point_sampling as tps
+    n, h, w = d.shape
+    got = tc.check_consistency(d, cams, **K1_KW)
+    ref = tc.check_consistency_reference(d, cams, **K1_KW)
+    kept = int((ref > 0).sum())
+    assert torch.equal(got, ref), \
+        f"K1 {name}: {int((got != ref).sum())} pixels differ"
+    assert kept > 0.3 * int((d > 0).sum()), f"K1 {name}: kept too little"
+    log(f"K1 consistency, {name} {n}x{h}x{w}: bit-identical, kept {kept} "
+        f"of {int((d > 0).sum())} valid pixels (of {d.numel()})")
+    k1 = dict(max_abs_err=0.0, **timed_record(
+        f"K1 {name}", lambda: tc.check_consistency(d, cams, **K1_KW),
+        lambda: tc.check_consistency_reference(d, cams, **K1_KW),
+        *k1_bound(d)))
+
+    dc = got                          # the sampler reads K1's output
+    kw = dict(min_dsp=CFG.min_dsp, max_dsp=CFG.max_dsp, **sk)
+    op = tps.sample_oriented_points(dc, cams, **kw)
+    rp = tps.sample_oriented_points_reference(dc, cams, **kw)
+    assert torch.equal(op.points, rp.points), f"K2 {name}: points differ"
+    conf_eq = (op.conf == rp.conf).float().mean().item()
+    valid_eq = (op.valid == rp.valid).float().mean().item()
+    both = op.valid & rp.valid
+    nerr = (op.normals - rp.normals).abs().amax(-1)[both]
+    n_ok = (nerr <= 1e-6).float().mean().item()
+    err = max((op.conf - rp.conf).abs().max().item(), nerr.max().item())
+    log(f"K2 oriented points, {name} {n}x{h}x{w} {sk}: points "
+        f"bit-identical, conf equal on {conf_eq:.6f}, keep mask on "
+        f"{valid_eq:.6f}, normals within 1e-6 on {n_ok:.6f} of "
+        f"{int(both.sum())} kept samples (max normal error "
+        f"{nerr.max().item():.3g}), kept {int(rp.valid.sum())} of "
+        f"{rp.valid.numel()}")
+    assert conf_eq >= 0.9999, f"K2 {name}: conf agreement {conf_eq}"
+    assert valid_eq >= 0.9999, f"K2 {name}: keep-mask agreement {valid_eq}"
+    assert n_ok >= 0.9999, f"K2 {name}: normals agreement {n_ok}"
+    r = sk["sample_radius"]
+    assert both.sum() > 0.1 * (dc[:, ::r, ::r] > 0).sum(), \
+        f"K2 {name}: kept too little"
+    k2 = dict(max_abs_err=err, **timed_record(
+        f"K2 {name}", lambda: tps.sample_oriented_points(dc, cams, **kw),
+        lambda: tps.sample_oriented_points_reference(dc, cams, **kw),
+        *k2_bound(d, sk)))
+    return k1, k2
 
 
 def phase_kernels(dev):
     """Each kernel against its plain version at the main path's shapes."""
-    from multiviewstitch_tpu_torch.ops import consistency as tc
-    from multiviewstitch_tpu_torch.ops import point_sampling as tps
-    from multiviewstitch_tpu_torch.pipeline.fixtures import (uv_sphere,
+    from multiviewstitch_tpu_torch.pipeline.fixtures import (make_scene,
+                                                             uv_sphere,
                                                              ring_cameras)
     from multiviewstitch_tpu_torch.core.cameras import CameraBatch
 
     seqs, _, base, _ = config2_sequences(dev)
-    d, cams = seqs[0].disparity, seqs[0].cams
     rec = {}
-
-    kw = dict(min_dsp=CFG.min_dsp, max_dsp=CFG.max_dsp,
-              reproj_err=CFG.reproj_err)
-    got = tc.check_consistency(d, cams, **kw)
-    ref = tc.check_consistency_reference(d, cams, **kw)
-    agree = ((got > 0) == (ref > 0)).float().mean().item()
-    both = (got > 0) & (ref > 0)
-    assert agree >= 0.9999, f"K1 kept-mask agreement {agree}"
-    assert torch.equal(got[both], ref[both]), "K1 values differ"
-    assert both.sum() > 0.3 * (d > 0).sum(), "K1 kept too little"
-    rec["consistency"] = dict(
-        max_abs_err=(got - ref).abs().max().item(),
-        ms=time_ms(lambda: tc.check_consistency(d, cams, **kw)),
-        plain_ms=time_ms(lambda: tc.check_consistency_reference(d, cams,
-                                                                 **kw)))
-    log(f"K1 consistency {tuple(d.shape)}: mask agreement {agree:.6f}, "
-        f"kernel {rec['consistency']['ms']:.3f} ms, plain "
-        f"{rec['consistency']['plain_ms']:.3f} ms")
-
-    dc = got
-    op = tps.sample_oriented_points(
-        dc, cams, min_dsp=CFG.min_dsp, max_dsp=CFG.max_dsp,
-        sample_radius=CFG.sample_radius, nbr_num=CFG.nbr_frm_num,
-        nbr_step=CFG.nbr_frm_step, dsp_err=CFG.dsp_err,
-        conf_min=CFG.conf_min)
-    r = CFG.sample_radius
-    pts_s = op.points.reshape(N_FRAMES, len(range(0, H, r)),
-                              len(range(0, W, r)), 3).contiguous()
-    vk = dict(nbr_num=CFG.nbr_frm_num, nbr_step=CFG.nbr_frm_step,
-              min_dsp=CFG.min_dsp, max_dsp=CFG.max_dsp, dsp_err=CFG.dsp_err)
-    got = tps.sampling_votes(pts_s, dc, cams, **vk)
-    ref = tps.sampling_votes_reference(pts_s, dc, cams, **vk)
-    agree = (got == ref).float().mean().item()
-    assert agree >= 0.9999, f"K2 conf agreement {agree}"
-    rec["sampling_votes"] = dict(
-        max_abs_err=(got - ref).abs().max().item(),
-        ms=time_ms(lambda: tps.sampling_votes(pts_s, dc, cams, **vk)),
-        plain_ms=time_ms(lambda: tps.sampling_votes_reference(pts_s, dc,
-                                                              cams, **vk)))
-    log(f"K2 sampling votes {tuple(pts_s.shape[:3])}: conf agreement "
-        f"{agree:.6f}, kernel {rec['sampling_votes']['ms']:.3f} ms, plain "
-        f"{rec['sampling_votes']['plain_ms']:.3f} ms")
+    for name, n_frames, sk in K12_SIZES:
+        if name == "config-2":
+            d, cams = seqs[0].disparity, seqs[0].cams
+        else:
+            sc = make_scene(n_frames=n_frames, width=W, height=H, bumps=0.15,
+                            n_lat=64, n_lon=96, arc_deg=45.0, device=dev)
+            d, cams = sc.disparity, sc.cams
+        k1, k2 = k12_case(name, d, cams, sk)
+        if name == "config-2":        # the main path's shapes
+            rec["consistency"], rec["oriented_points"] = k1, k2
+        del d, cams
+        torch.cuda.empty_cache()
 
     def raster_case(name, verts, faces, rcams, h, w, main=False):
         uvz, fi, ok = tr.project_vertices(
@@ -219,24 +337,17 @@ def phase_kernels(dev):
         assert (ref > 0).any(), f"K3 {name}: nothing rendered"
         assert torch.equal(got, ref), \
             f"K3 {name}: coverage diff {n_diff}, max abs err {err}"
-        side, px = largest_bbox(uvz, fi, ok, h, w)
-
-        def run():
-            return tr.raster(uvz, fi, ok, height=h, width=w)
-        ms = time_ms(run)
-        pms = time_ms(lambda: tr.raster_reference(uvz, fi, ok, height=h,
-                                                  width=w))
-        parts = kernel_breakdown(run)
-        log(f"    K3 {name}, device us per call: " + ", ".join(
-            f"{k} {v:.1f}" for k, v in parts.items()) +
-            f"; total {sum(parts.values()):.1f}")
+        side, px, bbox_px, live = bbox_stats(uvz, fi, ok, h, w)
         log(f"K3 raster {name}: {len(faces)} faces x {uvz.shape[0]} frames "
             f"at {w}x{h}, largest clipped bbox {px} px (longest side "
             f"{side} px), {pairs} (face, tile) pairs, coverage diff "
-            f"{n_diff}, max abs err {err}, kernel {ms:.3f} ms, "
-            f"plain {pms:.3f} ms")
+            f"{n_diff}, max abs err {err}")
+        times = timed_record(
+            f"K3 {name}", lambda: tr.raster(uvz, fi, ok, height=h, width=w),
+            lambda: tr.raster_reference(uvz, fi, ok, height=h, width=w),
+            *k3_bound(uvz, fi, ok, h, w, bbox_px, live))
         if main:
-            rec["raster"] = dict(max_abs_err=err, ms=ms, plain_ms=pms)
+            rec["raster"] = dict(max_abs_err=err, **times)
         return got, side
 
     raster_case("config-2 sphere", base.vertices, base.faces, base.cams, H,

@@ -7,13 +7,15 @@ solve and greedy chain, fusion (consistency check, oriented point sampling)
 and TSDF reconstruction. The JAX package beside it is the reference the
 port is tested against; this package imports ``torch`` and never ``jax``.
 
-Package layout (mirrors multiviewstitch_tpu):
+Package layout (mirrors multiviewstitch_tpu, of which it imports nothing):
+  config.py  StitchConfig and the legacy config.txt loader (its own copy)
   core/      cameras, similarity transforms
-  ops/       rasterizer (K3), consistency (K1), point_sampling (K2),
-             view_synth, features, match, filters, tsdf
+  ops/       rasterizer (K3), consistency (K1), point_sampling (K2: the
+             whole oriented point sampler), view_synth, features, match,
+             filters, tsdf
   solvers/   srt (Kabsch + RANSAC), unionfind
   pipeline/  fixtures, match_edges, align_seq
-  io/        srt (SRT.txt)
+  io/        srt (SRT.txt), meshio (OBJ, NPTS), manifest (its own copies)
   csrc/      CUDA C++ sources of K1-K3 (sm_90a)
   kernels/   nvcc build + ctypes wrappers + launch counts
   cli.py     ``align`` entry point

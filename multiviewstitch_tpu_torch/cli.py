@@ -37,7 +37,7 @@ def _log(msg: str):
 def demo_config():
     """The demo's StitchConfig: tests/test_e2e_align.py's CFG (config-2
     is this with max_keypoints=512)."""
-    from multiviewstitch_tpu.config import StitchConfig
+    from .config import StitchConfig
     return StitchConfig().replace(
         view_count=1, min_match_count=7, iter_num=256, sample_interval=4,
         ssd_win=3, ssd_err=40.0, reproj_err=4, pixel_err=12.0,
@@ -118,7 +118,7 @@ def run_align(seqs, cfg, grid: int, result_dir: str, stage=_call):
     (names prep_s, sweep_solve_s, fuse_s, tsdf_s, trim_write_s), so a
     caller can time or profile them. Returns (result, points, normals,
     verts, faces)."""
-    from multiviewstitch_tpu.io.meshio import write_obj, write_npts
+    from .io.meshio import write_obj, write_npts
     from .io.srt import save_srt
     from .ops.tsdf import fuse_multi_sequence
     from .pipeline.align_seq import align_sequences, fuse_sequences
@@ -151,7 +151,7 @@ def run_align(seqs, cfg, grid: int, result_dir: str, stage=_call):
 
 
 def cmd_align(args) -> int:
-    from multiviewstitch_tpu.io.manifest import StageManifest, hash_arrays
+    from .io.manifest import StageManifest, hash_arrays
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():

@@ -8,24 +8,26 @@
 
 namespace mvs {
 
+// 16 floats, so a block stages cameras into shared memory field by field
 struct Cam {
   float fx, fy, cx, cy;
   float R[9];
   float t[3];
 };
+constexpr int kCamFields = 16;
 
-// K [3,3], R [3,3], t [3] rows of camera n
-__device__ __forceinline__ Cam load_cam(const float* K, const float* R,
-                                        const float* t, int n) {
-  Cam c;
-  const float* k = K + 9 * n;
-  c.fx = k[0];
-  c.fy = k[4];
-  c.cx = k[2];
-  c.cy = k[5];
-  for (int i = 0; i < 9; ++i) c.R[i] = R[9 * n + i];
-  for (int i = 0; i < 3; ++i) c.t[i] = t[3 * n + i];
-  return c;
+// Field f (0..15, in Cam's order) of camera m from K [N,3,3], R [N,3,3],
+// t [N,3]
+__device__ __forceinline__ float cam_field(const float* __restrict__ K,
+                                           const float* __restrict__ R,
+                                           const float* __restrict__ t, int m,
+                                           int f) {
+  if (f < 4) {
+    const int k = f == 0 ? 0 : f == 1 ? 4 : f == 2 ? 2 : 5;  // fx fy cx cy
+    return __ldg(K + 9 * m + k);
+  }
+  if (f < 13) return __ldg(R + 9 * m + (f - 4));
+  return __ldg(t + 3 * m + (f - 13));
 }
 
 // cameras.unproject: pixel (u, v) at depth -> world point
@@ -43,8 +45,10 @@ __device__ __forceinline__ void unproject(const Cam& c, float u, float v,
 }
 
 // cameras.project: world point -> continuous pixel (u, v) and camera z
+// (and, if asked, the 1/z it multiplied by)
 __device__ __forceinline__ void project(const Cam& c, const float* p,
-                                        float* u, float* v, float* z) {
+                                        float* u, float* v, float* z,
+                                        float* inv_zs = nullptr) {
   const float* R = c.R;
   float pc0 = R[0] * p[0] + R[1] * p[1] + R[2] * p[2] + c.t[0];
   float pc1 = R[3] * p[0] + R[4] * p[1] + R[5] * p[2] + c.t[1];
@@ -54,6 +58,7 @@ __device__ __forceinline__ void project(const Cam& c, const float* p,
   *u = c.fx * pc0 * inv_z + c.cx;
   *v = c.fy * pc1 * inv_z + c.cy;
   *z = pc2;
+  if (inv_zs) *inv_zs = inv_z;
 }
 
 // C++ (int)(x + 0.5) for the coordinates the tests use, kept in float so

@@ -1,2 +1,3 @@
-"""Result/SRT.txt reading and writing (mesh and point files come from the
-jax-free multiviewstitch_tpu.io.meshio)."""
+"""File formats of the port: Result/SRT.txt (``srt``), OBJ and NPTS
+(``meshio``) and the stage manifest (``manifest``), each its own copy, so
+nothing here imports the JAX package."""

@@ -1,18 +1,18 @@
 """ctypes wrappers of the hand-written CUDA kernels in ``csrc/``.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
-output with ``torch.empty``/``torch.zeros``, launches on PyTorch's current
-stream, raises on the launcher's ``cudaGetLastError()`` code, and adds one
-to its launch count (once per call, however many CUDA kernels the call
-runs). The plain PyTorch version of each kernel lives beside
-its caller in ``ops/`` (``check_consistency_reference``,
-``sampling_votes_reference``, ``raster_reference``); the public ops take it
-only for tensors on the CPU.
+outputs with ``torch.empty``, launches on PyTorch's current stream, raises
+on the launcher's ``cudaGetLastError()`` code, and adds one to its launch
+count (once per call, however many CUDA kernels the call runs). The plain
+PyTorch version of each kernel lives beside its caller in ``ops/``
+(``check_consistency_reference``, ``sample_oriented_points_reference``,
+``raster_reference``); the public ops take it only for tensors on the CPU.
 
 Kernels:
-  consistency     K1, csrc/consistency.cu  (ops/consistency.check_consistency)
-  sampling_votes  K2, csrc/sampling.cu     (ops/point_sampling votes)
-  raster          K3, csrc/raster.cu       (ops/rasterizer.render_sequence)
+  consistency      K1, csrc/consistency.cu  (ops/consistency.check_consistency)
+  oriented_points  K2, csrc/sampling.cu     (ops/point_sampling
+                                             .sample_oriented_points)
+  raster           K3, csrc/raster.cu       (ops/rasterizer.render_sequence)
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import torch
 
 from . import _build
 
-KERNELS = ("consistency", "sampling_votes", "raster")
+KERNELS = ("consistency", "oriented_points", "raster")
 _launches = {k: 0 for k in KERNELS}
 raster_pairs = None   # (face, tile) pairs K3 binned in its last call
 
@@ -44,6 +44,10 @@ def _stream(t: torch.Tensor):
 
 
 def _require(t: torch.Tensor, name: str, dtype, shape, device):
+    # one test on the common path; the specific message only on failure
+    if (isinstance(t, torch.Tensor) and t.device == device and
+            t.dtype == dtype and t.shape == shape and t.is_contiguous()):
+        return
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
     if t.device != device:
@@ -53,26 +57,32 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device):
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
+    raise ValueError(f"{name}: must be contiguous")
 
 
-def _cams(K, R, t, n, device):
-    _require(K, "K", torch.float32, (n, 3, 3), device)
-    _require(R, "R", torch.float32, (n, 3, 3), device)
-    _require(t, "t", torch.float32, (n, 3), device)
+def _frames(disparity: torch.Tensor, K, R, t, name: str):
+    """(n, h, w) of a CUDA disparity stack [N,H,W] and its cameras."""
+    if disparity.device.type != "cuda":
+        raise ValueError(f"{name} kernel needs CUDA tensors")
+    if disparity.dim() != 3:
+        raise ValueError(f"disparity: shape {tuple(disparity.shape)}, "
+                         "expected [N,H,W]")
+    n, h, w = disparity.shape
+    dev = disparity.device
+    _require(disparity, "disparity", torch.float32, (n, h, w), dev)
+    _require(K, "K", torch.float32, (n, 3, 3), dev)
+    _require(R, "R", torch.float32, (n, 3, 3), dev)
+    _require(t, "t", torch.float32, (n, 3), dev)
+    if n > 65535 or h * w >= 2 ** 31:
+        raise ValueError(f"{name}: {n} frames of {w}x{h} are too many")
+    return n, h, w
 
 
 def consistency(disparity: torch.Tensor, K: torch.Tensor, R: torch.Tensor,
                 t: torch.Tensor, *, min_dsp: float, max_dsp: float,
                 reproj_err: float) -> torch.Tensor:
     """K1: [N,H,W] disparity filtered by the +-1-frame round trip."""
-    if disparity.device.type != "cuda":
-        raise ValueError("consistency kernel needs CUDA tensors")
-    n, h, w = disparity.shape
-    _require(disparity, "disparity", torch.float32, (n, h, w),
-             disparity.device)
-    _cams(K, R, t, n, disparity.device)
+    n, h, w = _frames(disparity, K, R, t, "consistency")
     out = torch.empty_like(disparity)
     lib = _build.load()
     err = lib.mvs_consistency(
@@ -84,33 +94,38 @@ def consistency(disparity: torch.Tensor, K: torch.Tensor, R: torch.Tensor,
     return out
 
 
-def sampling_votes(pts_s: torch.Tensor, disparity: torch.Tensor,
-                   K: torch.Tensor, R: torch.Tensor, t: torch.Tensor, *,
-                   nbr_num: int, nbr_step: int, min_dsp: float,
-                   max_dsp: float, dsp_err: float) -> torch.Tensor:
-    """K2: agreement confidence [N,Hs,Ws] of the strided sample points
-    pts_s [N,Hs,Ws,3] against the +-k*step neighbour frames."""
-    if disparity.device.type != "cuda":
-        raise ValueError("sampling_votes kernel needs CUDA tensors")
-    n, h, w = disparity.shape
+def oriented_points(disparity: torch.Tensor, K: torch.Tensor,
+                    R: torch.Tensor, t: torch.Tensor, centers: torch.Tensor,
+                    *, sample_radius: int, nbr_num: int, nbr_step: int,
+                    min_dsp: float, max_dsp: float, dsp_err: float,
+                    conf_min: float):
+    """K2: the oriented point sampler of a disparity stack [N,H,W] whose
+    camera centres are ``centers`` [N,3]. Returns (points [N,S,3], normals
+    [N,S,3], conf [N,S], valid [N,S] bool), S = Hs * Ws samples a frame at
+    stride ``sample_radius``."""
+    n, h, w = _frames(disparity, K, R, t, "oriented_points")
     dev = disparity.device
-    _require(disparity, "disparity", torch.float32, (n, h, w), dev)
-    if pts_s.dim() != 4 or pts_s.shape[0] != n or pts_s.shape[3] != 3:
-        raise ValueError(f"pts_s: shape {tuple(pts_s.shape)}, expected "
-                         f"[{n},Hs,Ws,3]")
-    hs, ws = pts_s.shape[1:3]
-    _require(pts_s, "pts_s", torch.float32, (n, hs, ws, 3), dev)
-    _cams(K, R, t, n, dev)
-    conf = torch.empty((n, hs, ws), dtype=torch.float32, device=dev)
+    _require(centers, "centers", torch.float32, (n, 3), dev)
+    r, nbr_num, nbr_step = int(sample_radius), int(nbr_num), int(nbr_step)
+    if r < 1 or nbr_num < 0 or nbr_num * abs(nbr_step) >= 2 ** 30:
+        raise ValueError(f"oriented_points: sample_radius {r}, nbr_num "
+                         f"{nbr_num}, nbr_step {nbr_step}")
+    s = -(-h // r) * -(-w // r)
+    f32 = dict(dtype=torch.float32, device=dev)
+    points = torch.empty((n, s, 3), **f32)
+    normals = torch.empty((n, s, 3), **f32)
+    conf = torch.empty((n, s), **f32)
+    valid = torch.empty((n, s), dtype=torch.bool, device=dev)
     lib = _build.load()
-    err = lib.mvs_sampling_votes(
-        pts_s.data_ptr(), disparity.data_ptr(), K.data_ptr(), R.data_ptr(),
-        t.data_ptr(), conf.data_ptr(), n, hs, ws, h, w, int(nbr_num),
-        int(nbr_step), float(min_dsp), float(max_dsp), float(dsp_err),
+    err = lib.mvs_oriented_points(
+        disparity.data_ptr(), K.data_ptr(), R.data_ptr(), t.data_ptr(),
+        centers.data_ptr(), points.data_ptr(), normals.data_ptr(),
+        conf.data_ptr(), valid.data_ptr(), n, h, w, r, nbr_num, nbr_step,
+        float(min_dsp), float(max_dsp), float(dsp_err), float(conf_min),
         _stream(disparity))
-    _build.check(lib, err, "sampling_votes")
-    _launches["sampling_votes"] += 1
-    return conf
+    _build.check(lib, err, "oriented_points")
+    _launches["oriented_points"] += 1
+    return points, normals, conf, valid
 
 
 # csrc/raster.cu: 16x16-pixel tiles, work items of 256 face records, a

@@ -37,10 +37,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     # disp, K, R, t, out, n, h, w, min_dsp, max_dsp, reproj_err^2, stream
     "mvs_consistency": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
-    # pts_s, disp, K, R, t, conf, n, hs, ws, h, w, nbr_num, nbr_step,
-    # min_dsp, max_dsp, dsp_err, stream
-    "mvs_sampling_votes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _I, _F, _F, _F, _P),
+    # disp, K, R, t, centers, points, normals, conf, valid, n, h, w,
+    # sample_radius, nbr_num, nbr_step, min_dsp, max_dsp, dsp_err, conf_min,
+    # stream
+    "mvs_oriented_points": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                            _I, _I, _I, _F, _F, _F, _F, _P),
     # uvz, faces, face_ok, rec, meta (+ counts), start, items, item_cap,
     # bins, capacity, zbuf, n_frames, n_verts, n_faces, h, w, stream
     "mvs_raster": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I,

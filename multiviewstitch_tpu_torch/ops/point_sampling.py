@@ -10,9 +10,11 @@ PyTorch counterpart of ``multiviewstitch_tpu/ops/point_sampling.py``:
     ``dsp_err``
   - keep points with confidence >= ``conf_min``
 
-The confidence votes are one kernel on the card (K2, ``csrc/sampling.cu``);
-``sampling_votes_reference`` is its plain PyTorch version, taken for CPU
-tensors. Points, tangents, normals and the keep mask are elementwise torch.
+On the card the whole sampler is one kernel (K2, ``csrc/sampling.cu``):
+points, normals, confidences and the keep mask of every strided sample,
+with no full-resolution [N,H,W,3] array. ``sample_oriented_points_reference``
+(with ``sampling_votes_reference`` for the confidences) is its plain
+PyTorch version, taken for CPU tensors.
 """
 
 from __future__ import annotations
@@ -36,8 +38,9 @@ class OrientedPoints(NamedTuple):
 def sampling_votes_reference(pts_s, disparity, cams: CameraBatch, *,
                              nbr_num: int, nbr_step: int, min_dsp: float,
                              max_dsp: float, dsp_err: float):
-    """Plain PyTorch version of K2: conf [N,Hs,Ws] of sample points
-    pts_s [N,Hs,Ws,3] against the +-k*step neighbour frames."""
+    """The confidences of ``sample_oriented_points_reference``: conf
+    [N,Hs,Ws] of sample points pts_s [N,Hs,Ws,3] against the +-k*step
+    neighbour frames."""
     n, h, w = disparity.shape
     dev = disparity.device
     votes = torch.zeros(pts_s.shape[:3], dtype=disparity.dtype, device=dev)
@@ -67,26 +70,33 @@ def sampling_votes_reference(pts_s, disparity, cams: CameraBatch, *,
     return torch.where(exists_total > 0, conf, torch.ones_like(conf))
 
 
-def sampling_votes(pts_s, disparity, cams: CameraBatch, *, nbr_num: int,
-                   nbr_step: int, min_dsp: float, max_dsp: float,
-                   dsp_err: float):
-    """K2 on CUDA tensors, its plain version on CPU tensors."""
-    kw = dict(nbr_num=nbr_num, nbr_step=nbr_step, min_dsp=min_dsp,
-              max_dsp=max_dsp, dsp_err=dsp_err)
-    if disparity.device.type == "cuda":
-        return kernels.sampling_votes(
-            pts_s.contiguous(), disparity.contiguous(), cams.K.contiguous(),
-            cams.R.contiguous(), cams.t.contiguous(), **kw)
-    if disparity.device.type == "cpu":
-        return sampling_votes_reference(pts_s, disparity, cams, **kw)
-    raise ValueError(f"sampling_votes: unsupported device {disparity.device}")
-
-
 def sample_oriented_points(disparity, cams: CameraBatch, *, min_dsp: float,
                            max_dsp: float, sample_radius: int = 2,
                            nbr_num: int = 2, nbr_step: int = 1,
                            dsp_err: float = 0.01,
                            conf_min: float = 0.6) -> OrientedPoints:
+    """Oriented points [N,S,3], normals, confidences and keep mask of a
+    disparity stack [N,H,W]. K2 on CUDA tensors (the camera centres come
+    from ``cams.centers()``, as in the plain version), the plain version on
+    CPU tensors."""
+    kw = dict(min_dsp=min_dsp, max_dsp=max_dsp, sample_radius=sample_radius,
+              nbr_num=nbr_num, nbr_step=nbr_step, dsp_err=dsp_err,
+              conf_min=conf_min)
+    if disparity.device.type == "cuda":
+        return OrientedPoints(*kernels.oriented_points(
+            disparity.contiguous(), cams.K.contiguous(), cams.R.contiguous(),
+            cams.t.contiguous(), cams.centers().contiguous(), **kw))
+    if disparity.device.type == "cpu":
+        return sample_oriented_points_reference(disparity, cams, **kw)
+    raise ValueError(f"sample_oriented_points: unsupported device "
+                     f"{disparity.device}")
+
+
+def sample_oriented_points_reference(
+        disparity, cams: CameraBatch, *, min_dsp: float, max_dsp: float,
+        sample_radius: int = 2, nbr_num: int = 2, nbr_step: int = 1,
+        dsp_err: float = 0.01, conf_min: float = 0.6) -> OrientedPoints:
+    """Plain PyTorch version of K2 (and the JAX function's semantics)."""
     n, h, w = disparity.shape
     dev = disparity.device
     valid = (disparity >= min_dsp) & (disparity <= max_dsp)
@@ -116,9 +126,9 @@ def sample_oriented_points(disparity, cams: CameraBatch, *, min_dsp: float,
     flip = (nrm * (C - pts_s)).sum(-1) < 0
     nrm = torch.where(flip[..., None], -nrm, nrm)
 
-    conf = sampling_votes(pts_s, disparity, cams, nbr_num=nbr_num,
-                          nbr_step=nbr_step, min_dsp=min_dsp,
-                          max_dsp=max_dsp, dsp_err=dsp_err)
+    conf = sampling_votes_reference(pts_s, disparity, cams, nbr_num=nbr_num,
+                                    nbr_step=nbr_step, min_dsp=min_dsp,
+                                    max_dsp=max_dsp, dsp_err=dsp_err)
     keep = valid_s & has_n & (conf >= conf_min)
     return OrientedPoints(pts_s.reshape(n, s_h * s_w, 3),
                           nrm.reshape(n, s_h * s_w, 3),

@@ -4,7 +4,7 @@ PyTorch counterpart of ``multiviewstitch_tpu/pipeline/align_seq.py``
 (Processor::AlignmentSeq + CalcSimilarityTransformationSeq,
 Processor.cpp:835-1106): per-sequence prep -> per-pair edge sweep ->
 keyframe selection + SRT solve -> greedy left-compose chain; then
-consistency check (K1) -> oriented point sampling (K2) -> visibility
+consistency check (K1) -> oriented point sampler (K2) -> visibility
 filter -> transform into the reference frame.
 
 Not ported yet: ``refine`` (pose graph / bundle adjustment), ``all_pairs``,
@@ -18,7 +18,7 @@ from typing import List, Tuple
 
 import torch
 
-from multiviewstitch_tpu.config import StitchConfig
+from ..config import StitchConfig
 from ..core.cameras import CameraBatch
 from ..core.transforms import Similarity
 from ..ops.consistency import check_consistency

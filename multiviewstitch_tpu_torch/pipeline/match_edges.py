@@ -18,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from multiviewstitch_tpu.config import StitchConfig
+from ..config import StitchConfig
 from ..core.cameras import CameraBatch, unproject_depth_map
 from ..ops.features import detect_batch
 from ..ops.filters import dedup_matches, ssd_filter, gap_filter

@@ -6,9 +6,12 @@ JAX package (tests/conftest.py imports jax, hence --noconftest):
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: the kernels are built with -fmad=false and follow their plain
-versions' operand order, so K1's kept mask and K2's confidence agree on
->= 99.99 % of pixels (equal values where both keep) and K3's z-buffer is
-bit-identical (a max is order-free, whatever order a tile's bin holds)."""
+versions' operand order, so K1's output and K2's points are bit-identical,
+K2's confidences and keep mask agree on >= 99.99 % of samples and its
+normals lie within 1e-6 on >= 99.99 % of the samples both keep (PyTorch's
+cross, norm and sum kernels may contract or reorder; an edge-on normal may
+flip), and K3's z-buffer is bit-identical (a max is order-free, whatever
+order a tile's bin holds). Every test checks the kernel's launch count."""
 
 import numpy as np
 import pytest
@@ -37,14 +40,17 @@ def cuda():
     return torch.device("cuda")
 
 
+def _noisy(sc, cuda, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return sc.disparity * (1 + 0.01 * torch.randn(sc.disparity.shape,
+                                                  generator=g, device=cuda))
+
+
 @pytest.fixture(scope="module")
 def scene(cuda):
     sc = make_scene(n_frames=5, width=160, height=120, bumps=0.15,
                     n_lat=64, n_lon=96, arc_deg=60.0, device=cuda)
-    g = torch.Generator(device=cuda).manual_seed(0)
-    d = sc.disparity * (1 + 0.01 * torch.randn(sc.disparity.shape,
-                                               generator=g, device=cuda))
-    return d, sc.cams
+    return _noisy(sc, cuda), sc.cams
 
 
 def _counted(name, fn):
@@ -55,30 +61,111 @@ def _counted(name, fn):
     return out
 
 
+K1_KW = dict(min_dsp=1e-3, max_dsp=10.0, reproj_err=4)
+
+
+def _k1_matches_plain(d, cams):
+    got = _counted("consistency",
+                   lambda: tc.check_consistency(d, cams, **K1_KW))
+    ref = tc.check_consistency_reference(d, cams, **K1_KW)
+    assert torch.equal(got, ref)
+    return got
+
+
 def test_k1_consistency_matches_plain(scene):
     d, cams = scene
-    kw = dict(min_dsp=1e-3, max_dsp=10.0, reproj_err=4)
-    got = _counted("consistency", lambda: tc.check_consistency(d, cams, **kw))
-    ref = tc.check_consistency_reference(d, cams, **kw)
-    assert ((got > 0) == (ref > 0)).float().mean().item() >= 0.9999
-    both = (got > 0) & (ref > 0)
-    assert torch.equal(got[both], ref[both])
-    assert both.sum() > 0.3 * (d > 0).sum()
+    got = _k1_matches_plain(d, cams)
+    assert (got > 0).sum() > 0.3 * (d > 0).sum()
 
 
-def test_k2_sampling_votes_match_plain(scene):
+@pytest.mark.parametrize("frames,width,height", [
+    (1, 160, 120), (2, 160, 120), (2, 157, 61), (64, 96, 72), (64, 94, 45)])
+def test_k1_frames_and_widths_match_plain(cuda, frames, width, height):
+    # widths 157 and 94 are not multiples of 4 (the scalar path), 61 and
+    # 45 rows not multiples of the 8-row tile
+    sc = make_scene(n_frames=frames, width=width, height=height, bumps=0.15,
+                    n_lat=32, n_lon=48, arc_deg=60.0, device=cuda)
+    d = _noisy(sc, cuda)
+    got = _k1_matches_plain(d, sc.cams)
+    assert (got > 0).any()
+    if frames == 1:                     # no neighbour: every valid pixel
+        assert torch.equal(got > 0, d > 0)
+
+
+def test_k1_unaligned_rows_take_the_scalar_path(scene):
     d, cams = scene
-    op = tps.sample_oriented_points(d, cams, min_dsp=1e-3, max_dsp=10.0,
-                                    sample_radius=2, nbr_num=2)
+    buf = torch.empty(d.numel() + 1, dtype=d.dtype, device=d.device)
+    shifted = buf[1:].view(d.shape)     # contiguous, 4 bytes off 16
+    shifted.copy_(d)
+    assert shifted.data_ptr() % 16 == 4
+    assert torch.equal(_k1_matches_plain(shifted, cams),
+                       _k1_matches_plain(d, cams))
+
+
+@pytest.mark.parametrize("fill", [0.0, 20.0])
+def test_k1_no_valid_pixel(scene, fill):
+    d, cams = scene
+    got = _k1_matches_plain(torch.full_like(d, fill), cams)
+    assert (got == 0).all()
+
+
+def _k2_matches_plain(d, cams, **kw):
+    kw = dict(min_dsp=1e-3, max_dsp=10.0, **kw)
+    got = _counted("oriented_points",
+                   lambda: tps.sample_oriented_points(d, cams, **kw))
+    ref = tps.sample_oriented_points_reference(d, cams, **kw)
+    assert torch.equal(got.points, ref.points)
+    assert (got.conf == ref.conf).float().mean().item() >= 0.9999
+    assert (got.valid == ref.valid).float().mean().item() >= 0.9999
+    both = got.valid & ref.valid
+    nerr = (got.normals - ref.normals).abs().amax(-1)[both]
+    assert (nerr <= 1e-6).float().mean().item() >= 0.9999
+    return got, ref
+
+
+@pytest.fixture(scope="module")
+def scene12(cuda):
+    sc = make_scene(n_frames=12, width=160, height=120, bumps=0.15,
+                    n_lat=64, n_lon=96, arc_deg=60.0, device=cuda)
+    return _noisy(sc, cuda, seed=1), sc.cams
+
+
+@pytest.mark.parametrize("r,nbr_num,nbr_step", [
+    (1, 1, 1), (2, 1, 1), (3, 1, 1), (2, 5, 1), (3, 5, 1), (2, 1, 2),
+    (2, 5, 2)])
+def test_k2_oriented_points_match_plain(scene12, r, nbr_num, nbr_step):
+    d, cams = scene12
+    got, ref = _k2_matches_plain(d, cams, sample_radius=r, nbr_num=nbr_num,
+                                 nbr_step=nbr_step, dsp_err=0.01,
+                                 conf_min=0.6)
     n, h, w = d.shape
-    pts_s = op.points.reshape(n, len(range(0, h, 2)), len(range(0, w, 2)), 3)
-    kw = dict(nbr_num=2, nbr_step=1, min_dsp=1e-3, max_dsp=10.0,
-              dsp_err=0.01)
-    got = _counted("sampling_votes",
-                   lambda: tps.sampling_votes(pts_s, d, cams, **kw))
-    ref = tps.sampling_votes_reference(pts_s, d, cams, **kw)
-    assert (got == ref).float().mean().item() >= 0.9999
-    assert (got > 0).any() and (got < 1).any()
+    assert got.points.shape == (n, len(range(0, h, r)) * len(range(0, w, r)),
+                                3)
+    assert got.valid.any() and (got.conf > 0).any() and (got.conf < 1).any()
+
+
+def test_k2_valid_pixels_on_every_border(cuda):
+    # cameras 0.7 from the centre of a sphere of radius ~0.5: the surface
+    # fills every image, so the tangents of the border samples wrap
+    sc = make_scene(n_frames=3, width=160, height=120, bumps=0.05, n_lat=32,
+                    n_lon=48, arc_deg=30.0, cam_radius=0.7, device=cuda)
+    d = sc.disparity
+    assert all(bool((e > 0).all()) for e in (d[:, 0], d[:, -1], d[:, :, 0],
+                                             d[:, :, -1]))
+    for r in (1, 2, 3):
+        got, _ = _k2_matches_plain(d, sc.cams, sample_radius=r, nbr_num=1,
+                                   nbr_step=1, dsp_err=0.05, conf_min=0.0)
+        n, h, w = d.shape
+        keep = got.valid.reshape(n, len(range(0, h, r)), -1)
+        assert keep[:, 0].any() and keep[:, :, 0].any()
+
+
+def test_k2_one_frame_has_conf_one(scene):
+    d, cams = scene
+    got, _ = _k2_matches_plain(d[:1].contiguous(), cams[:1], sample_radius=2,
+                               nbr_num=2, nbr_step=1, dsp_err=0.01,
+                               conf_min=0.6)
+    assert (got.conf == 1).all() and got.valid.any()
 
 
 @pytest.mark.parametrize("case", ["sphere", "giant", "border"])
@@ -242,6 +329,16 @@ def test_k3_makes_one_host_read(cuda, name):
 
 def test_wrappers_check_their_inputs(scene):
     d, cams = scene
+    kw = dict(sample_radius=2, nbr_num=1, nbr_step=1, min_dsp=0.0,
+              max_dsp=1.0, dsp_err=0.05, conf_min=0.5)
+    C = cams.centers()
+    with pytest.raises(ValueError):
+        kernels.oriented_points(d, cams.K, cams.R, cams.t, C[:2], **kw)
+    with pytest.raises(ValueError):
+        kernels.oriented_points(d, cams.K, cams.R, cams.t, C,
+                                **dict(kw, sample_radius=0))
+    with pytest.raises(TypeError):
+        kernels.oriented_points(d.half(), cams.K, cams.R, cams.t, C, **kw)
     with pytest.raises(TypeError):
         kernels.consistency(d.double(), cams.K, cams.R, cams.t, min_dsp=0.0,
                             max_dsp=1.0, reproj_err=4)

@@ -1,5 +1,7 @@
-"""The PyTorch port imports without jax (the GPU machine has none) and
-without nvcc or a card: its kernels build lazily, on the first CUDA call."""
+"""The PyTorch port imports without jax (the GPU machine has none), without
+any module of the JAX package (it keeps its own copies of the jax-free
+ones), and without nvcc or a card: its kernels build lazily, on the first
+CUDA call."""
 
 import os
 import subprocess
@@ -22,8 +24,11 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
 assert "multiviewstitch_tpu_torch.cli" in names, names
 assert "multiviewstitch_tpu_torch.kernels" in names, names
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax."))
+ref = sorted(k for k in sys.modules if k == "multiviewstitch_tpu" or
+             k.startswith("multiviewstitch_tpu."))
 print(len(names), "modules;", "jax loaded:" if bad else "jax absent", bad)
-sys.exit(1 if bad else 0)
+print("JAX package modules loaded:" if ref else "JAX package absent", ref)
+sys.exit(1 if bad or ref else 0)
 """
 
 
@@ -35,6 +40,7 @@ def test_port_imports_every_module_without_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "jax absent" in proc.stdout
+    assert "JAX package absent" in proc.stdout
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -46,9 +52,9 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.consistency(d, K, K, t, min_dsp=0.1, max_dsp=1.0,
                             reproj_err=4)
     with pytest.raises(ValueError, match="CUDA"):
-        kernels.sampling_votes(torch.zeros(2, 2, 3, 3), d, K, K, t,
-                               nbr_num=1, nbr_step=1, min_dsp=0.1,
-                               max_dsp=1.0, dsp_err=0.05)
+        kernels.oriented_points(d, K, K, t, t, sample_radius=2, nbr_num=1,
+                                nbr_step=1, min_dsp=0.1, max_dsp=1.0,
+                                dsp_err=0.05, conf_min=0.5)
     with pytest.raises(ValueError, match="CUDA"):
         kernels.raster(torch.zeros(1, 3, 3), torch.zeros(1, 3,
                                                          dtype=torch.int32),
