@@ -32,6 +32,21 @@ Phases, in order (any failure raises and the exit code is non-zero):
   5. the CLI: ``align --demo --device cuda``
   6. profile: each stage of the warm slice under torch.profiler; device
      busy time is the union of the device-side events' intervals
+  7. config: the config-2 scene (rendered by K3) written in the
+     reference's on-disk layout (cameras.act, DATA/_depth<i>.raw, JPEG
+     frames, imgPathList.txt, a legacy config.txt with config-2's knobs),
+     then ``cli.main(["align", "--config", ..., "--backend", "poisson",
+     "--write-mesh", "--set", "segment=true", "--set", "all_seq_proj=true",
+     "--set", "max_keypoints=512", "--device", "cuda", "--force"])`` at
+     the default PsnDptMax 10 (Poisson at 1024^3); checks SRT.txt against
+     the ground truth, PSR.npts, Model.obj's vertex RMSE to the true
+     surface, the ten per-frame meshes and that K1 and K2 launched; logs
+     per-stage synced wall times, the Poisson stage's peak device memory,
+     the grid and the mesh sizes; then a warm pass at psn_dpt_max 8
+     (256^3, whole-grid extraction), the host time of the depth-10
+     mesh's largest-component trim, the Poisson steps (field, dilation,
+     extraction: synced s and peak GB) at both depths, and the depth-10
+     Poisson stage alone under torch.profiler (device busy share)
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -473,6 +488,18 @@ def device_busy_us(prof):
     return busy, len(iv)
 
 
+def top_device_events(prof, n=5):
+    """The ``n`` device-side events of a profile with the most time."""
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us, k = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), k + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return "; ".join(f"{nm[:60]} {us / 1e3:.3f} ms x{k}"
+                     for nm, (us, k) in top)
+
+
 def phase_profile(dev):
     """Each stage of the warm config-2 slice under torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -499,14 +526,7 @@ def phase_profile(dev):
         log(f"profile {name}: wall {wall * 1e3:.3f} ms (profiled), device "
             f"busy {busy / 1e3:.3f} ms ({100 * busy / 1e6 / wall:.1f} %), "
             f"{n} device events")
-        by_name = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                us, k = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (us + e.time_range.elapsed_us(), k + 1)
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
-        log("    top device events: " + "; ".join(
-            f"{nm[:60]} {us / 1e3:.3f} ms x{k}" for nm, (us, k) in top))
+        log("    top device events: " + top_device_events(prof))
     log(f"profile total: wall {tot_wall:.4f} s (profiled), device busy "
         f"{tot_busy / 1e6:.4f} s ({100 * tot_busy / 1e6 / tot_wall:.1f} %)")
 
@@ -524,6 +544,181 @@ def phase_cli():
         f"{time.perf_counter() - t0:.2f} s")
 
 
+# config-2's knobs (cli.demo_config()) as the reference's legacy config.txt;
+# max_keypoints has no legacy key and goes in as --set
+CONFIG_TXT = """# config-2: two sequences of five VGA frames
+ImgPathList ./imgPathList.txt
+ViewCount 1 MinMatchCount 7 IterNum 256 SampleIterval 4 SSDWin 3
+SSDError 40.0 ReprojError 4 PixelError 12.0 AdtPxlErrRatio 0.6
+HLMarginRatio 0.02 HRMarginRatio 0.02 VLMarginRatio 0.02 VRMarginRatio 0.02
+MinDsp 0.001 MaxDsp 10.0 NbrFrmNum 1 MinConf 0.5 MaxDspErr 0.05
+"""
+# Poisson depths of phase 7's two passes: None keeps the config's PsnDptMax
+# (10, the StitchConfig default); the second pass is the warm 256^3 one
+CONFIG_DEPTHS = (None, 8)
+
+
+def write_config_layout(dev, root):
+    """The config-2 scene in the reference's layout under ``root``;
+    returns (config.txt path, gt, moved scene)."""
+    from multiviewstitch_tpu_torch.pipeline.ingest import save_sequence_dir
+    seqs, gt, _, moved = config2_sequences(dev)
+    for k, seq in enumerate(seqs):
+        save_sequence_dir(os.path.join(root, f"seq{k}"), seq)
+    with open(os.path.join(root, "imgPathList.txt"), "w") as f:
+        f.write("./seq0/\n./seq1/\n")
+    path = os.path.join(root, "config.txt")
+    with open(path, "w") as f:
+        f.write(CONFIG_TXT)
+    return path, gt, moved
+
+
+def config_run(dev, config, workdir, depth):
+    """``align --config`` through cli.main with every flag of the slice;
+    returns (stage seconds and the Poisson stage's peak GB, stage
+    outputs)."""
+    from multiviewstitch_tpu_torch.cli import main
+    t, outs = {}, {}
+
+    def stage(name, fn):
+        torch.cuda.synchronize()
+        if name == "poisson_s":
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        t[name] = time.perf_counter() - t0
+        if name == "poisson_s":
+            t["poisson_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        outs[name] = out
+        return out
+    argv = ["align", "--config", config, "--workdir", workdir, "--backend",
+            "poisson", "--write-mesh", "--set", "segment=true", "--set",
+            "all_seq_proj=true", "--set", "max_keypoints=512", "--device",
+            str(dev), "--force"]
+    if depth is not None:
+        argv += ["--set", f"psn_dpt_max={depth}"]
+    rc = main(argv, stage=stage)
+    assert rc == 0, f"cli align --config returned {rc}"
+    return t, outs
+
+
+def check_config_run(name, dev, wd, gt, moved, t):
+    """SRT.txt against gt, PSR.npts, Model.obj against the moved surface
+    and the per-frame meshes of one config run; returns the mesh size."""
+    from multiviewstitch_tpu_torch.core.transforms import rotation_angle_deg
+    from multiviewstitch_tpu_torch.io.meshio import read_npts, read_obj
+    from multiviewstitch_tpu_torch.io.srt import load_srt
+    res = os.path.join(wd, "Result")
+    T = load_srt(os.path.join(res, "SRT.txt"))[0]
+    s_err = abs(float(T.s) - GT_S) / GT_S
+    ang = rotation_angle_deg(T.R, gt.R)
+    t_err = float(np.linalg.norm(T.t.numpy() - gt.t.numpy()))
+    pts, nrm = read_npts(os.path.join(res, "PSR.npts"))
+    v, _, f = read_obj(os.path.join(res, "Model.obj"))
+    rmse = rmse_to(v, moved.vertices, dev) if len(v) else float("inf")
+    models = sorted(os.listdir(os.path.join(wd, "Models")))
+    log(f"config {name}: s {float(T.s):.5f} (gt {GT_S}), rotation error "
+        f"{ang:.4f} deg, translation error {t_err:.5f}; PSR.npts {len(pts)} "
+        f"points; Model.obj {len(v)} verts / {len(f)} faces, vertex RMSE to "
+        f"the true surface {rmse:.5f}; {len(models)} per-frame meshes")
+    log(f"config {name} stage wall times (synced): " + ", ".join(
+        f"{k} {x:.4f}" for k, x in t.items() if k.endswith("_s")) +
+        f"; total {sum(x for k, x in t.items() if k.endswith('_s')):.4f} s; "
+        f"Poisson peak device memory {t['poisson_peak_gb']:.3f} GB")
+    assert s_err <= 0.05, f"config {name}: scale {float(T.s)} vs {GT_S}"
+    assert ang < 3.0, f"config {name}: rotation error {ang} deg"
+    assert t_err < 0.08, f"config {name}: translation error {t_err}"
+    assert len(pts) > 2000 and np.isfinite(pts).all() and \
+        np.isfinite(nrm).all(), f"config {name}: PSR.npts"
+    assert len(v) > 500 and rmse < 0.05, \
+        f"config {name}: Model.obj {len(v)} verts, RMSE {rmse}"
+    assert models == sorted(f"model{k}_{i}.obj" for k in range(2)
+                            for i in range(N_FRAMES)), models
+    return len(v), len(f)
+
+
+def poisson_breakdown(pts, nrm, depth, dev):
+    """Synced wall seconds and peak device GB of each top-level step of
+    ``reconstruct_poisson`` at ``depth``: the field (splat, blur, solve,
+    iso level, weight grid), the occupancy dilation and the extraction
+    (Z-slabs above grid 256, with the host weld)."""
+    from multiviewstitch_tpu_torch.ops import poisson as P
+    steps = ("poisson_field", "_dilate_occupancy",
+             "_extract_mesh_slabs" if depth > 8 else "_extract_mesh")
+    saved = {k: getattr(P, k) for k in steps}
+    rows = {}
+
+    def timed(name):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = saved[name](*a, **kw)
+            torch.cuda.synchronize()
+            rows[name] = (time.perf_counter() - t0,
+                          torch.cuda.max_memory_allocated() / 1e9)
+            return out
+        return run
+    try:
+        for k in steps:
+            setattr(P, k, timed(k))
+        P.reconstruct_poisson(pts, nrm, depth=depth, device=dev)
+    finally:
+        for k, fn in saved.items():
+            setattr(P, k, fn)
+    log(f"poisson_s steps at depth {depth} (synced s, peak GB): " + ", ".join(
+        f"{k} {t:.4f} s / {gb:.3f} GB" for k, (t, gb) in rows.items()))
+
+
+def phase_config(dev):
+    """``align --config`` on the reference's on-disk layout with Poisson
+    at the default depth 10, segment, AllSeqProj and per-frame meshes."""
+    from torch.profiler import ProfilerActivity, profile
+    from multiviewstitch_tpu_torch.ops.poisson import reconstruct_poisson
+    with tempfile.TemporaryDirectory() as root:
+        config, gt, moved = write_config_layout(dev, root)
+        wd = os.path.join(root, "work10")
+        kernels.reset_launch_counts()
+        t, outs = config_run(dev, config, wd, CONFIG_DEPTHS[0])
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        log(f"launches during the config run: {launches}")
+        check_config_run("PsnDptMax 10 (Poisson 1024^3)", dev, wd, gt, moved,
+                         t)
+        for k in ("consistency", "oriented_points"):
+            assert launches[k] > 0, f"{k} was not launched by align --config"
+        depth = CONFIG_DEPTHS[1]
+        wd = os.path.join(root, f"work{depth}")
+        t8, _ = config_run(dev, config, wd, depth)
+        check_config_run(f"psn_dpt_max {depth} (Poisson {1 << depth}^3, "
+                         "warm)", dev, wd, gt, moved, t8)
+        from multiviewstitch_tpu_torch.solvers.unionfind import (
+            retain_largest_component)
+        t0 = time.perf_counter()
+        kv, kf, _ = retain_largest_component(*outs["all_seq_proj_s"][:2])
+        log(f"largest component of the depth-10 mesh: "
+            f"{len(outs['all_seq_proj_s'][0])} -> {len(kv)} verts, "
+            f"{len(kf)} faces in {time.perf_counter() - t0:.4f} s (host; "
+            f"the rest of trim_write_s is writing)")
+        pts, nrm = outs["fuse_s"]
+        full = 10 if CONFIG_DEPTHS[0] is None else CONFIG_DEPTHS[0]
+        for d in (full, depth):
+            poisson_breakdown(pts, nrm, d, dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            reconstruct_poisson(pts, nrm, depth=full, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy, n = device_busy_us(prof)
+        log(f"profile poisson_s at depth {full}: wall {wall:.4f} s "
+            f"(profiled), device busy {busy / 1e6:.4f} s "
+            f"({100 * busy / 1e6 / wall:.1f} %), {n} device events")
+        log("    top device events: " + top_device_events(prof))
+
+
 def main():
     name, smi_line = phase_device()
     dev = torch.device("cuda")
@@ -532,6 +727,7 @@ def main():
     launches = phase_slice(dev)
     phase_cli()
     phase_profile(dev)
+    phase_config(dev)
     out = []
     for k in kernels.KERNELS:
         src, replaces = SOURCES[k]

@@ -1,21 +1,24 @@
 """multiviewstitch_tpu_torch — the PyTorch / CUDA port of multiviewstitch_tpu.
 
 Runs the ``align`` path (the reference's -a 1 AlignmentSeq) on one NVIDIA
-H100: synthetic inputs rendered with the port's rasterizer, per-sequence
-prep (view synthesis, SIFT, unprojection), the batched edge sweep, the SRT
-solve and greedy chain, fusion (consistency check, oriented point sampling)
-and TSDF reconstruction. The JAX package beside it is the reference the
-port is tested against; this package imports ``torch`` and never ``jax``.
+H100: the reference's on-disk layout (``--config``) or synthetic inputs
+rendered with the port's rasterizer, per-sequence prep (foreground mask,
+view synthesis, SIFT, unprojection), the batched edge sweep, the SRT solve
+and greedy chain, fusion (consistency check, oriented point sampling),
+per-frame meshes, TSDF or screened Poisson reconstruction and the
+AllSeqProj trim. The JAX package beside it is the reference the port is
+tested against; this package imports ``torch`` and never ``jax``.
 
 Package layout (mirrors multiviewstitch_tpu, of which it imports nothing):
   config.py  StitchConfig and the legacy config.txt loader (its own copy)
-  core/      cameras, similarity transforms
+  core/      cameras (and the .act format), similarity transforms
   ops/       rasterizer (K3), consistency (K1), point_sampling (K2: the
              whole oriented point sampler), view_synth, features, match,
-             filters, tsdf
+             filters, tsdf, poisson, meshing, segmentation
   solvers/   srt (Kabsch + RANSAC), unionfind
-  pipeline/  fixtures, match_edges, align_seq
-  io/        srt (SRT.txt), meshio (OBJ, NPTS), manifest (its own copies)
+  pipeline/  fixtures, ingest, executor, match_edges, align_seq
+  io/        srt (SRT.txt), meshio (OBJ, NPTS), manifest, rawdepth (its
+             own copies)
   csrc/      CUDA C++ sources of K1-K3 (sm_90a)
   kernels/   nvcc build + ctypes wrappers + launch counts
   cli.py     ``align`` entry point

@@ -2,15 +2,17 @@
 AlignmentSeq, Processor.cpp:835-1106).
 
 Usage:
-  python -m multiviewstitch_tpu_torch.cli align --demo --workdir /tmp/mvs
+  python -m multiviewstitch_tpu_torch.cli align --config <dir>/config.txt \
+      [--backend poisson] [--write-mesh] [--set segment=true] \
+      [--set all_seq_proj=true] [--device cuda]
   python -m multiviewstitch_tpu_torch.cli align --demo --device cpu --grid 48
 
-Writes Result/SRT.txt, Result/PSR.npts and Result/Model.obj under
---workdir. The flags are those of ``multiviewstitch_tpu.cli align`` plus
---device (default cuda; there is no fallback to the CPU). Paths not ported
-yet — --config ingest, segment, --refine, --backend poisson, all_seq_proj,
---write-mesh, --debug-artifacts and the deform / render / pipeline / bench
-commands — are refused with a message and a non-zero exit.
+Writes Result/SRT.txt, Result/PSR.npts and Result/Model.obj (and, with
+--write-mesh or WriteMesh, Models/model<k>_<i>.obj) under --workdir. The
+flags are those of ``multiviewstitch_tpu.cli align`` plus --device
+(default cuda; there is no fallback to the CPU). Paths not ported yet —
+--refine, --debug-artifacts and the deform / render / pipeline / bench
+commands — are refused with a message and exit code 2.
 """
 
 from __future__ import annotations
@@ -24,10 +26,9 @@ import time
 import numpy as np
 import torch
 
-# options of the JAX CLI this port does not implement yet (refused, never
+# parts of the JAX CLI this port does not implement yet (refused, never
 # silently ignored)
 _NOT_PORTED_CMDS = ("deform", "render", "pipeline", "bench")
-_NOT_PORTED_KEYS = ("segment", "all_seq_proj", "write_mesh")
 
 
 def _log(msg: str):
@@ -90,21 +91,12 @@ def _apply_overrides(cfg, overrides):
     return cfg.replace(**kw)
 
 
-def _refusal(args, cfg):
+def _refusal(args):
     """Why this run needs a path the port does not have yet (or None)."""
-    if args.config:
-        return "--config ingest"
     if args.refine:
         return f"--refine {args.refine}"
-    if args.backend != "tsdf":
-        return f"--backend {args.backend}"
-    if args.write_mesh:
-        return "--write-mesh"
     if args.debug_artifacts:
         return "--debug-artifacts"
-    for key in _NOT_PORTED_KEYS:
-        if getattr(cfg, key):
-            return f"{key}=true"
     return None
 
 
@@ -112,15 +104,36 @@ def _call(name, fn):
     return fn()
 
 
-def run_align(seqs, cfg, grid: int, result_dir: str, stage=_call):
-    """align -> fuse -> TSDF -> trim, then write SRT.txt, PSR.npts and
-    Model.obj into ``result_dir``. Each step runs as ``stage(name, fn)``
-    (names prep_s, sweep_solve_s, fuse_s, tsdf_s, trim_write_s), so a
-    caller can time or profile them. Returns (result, points, normals,
-    verts, faces)."""
+def write_frame_meshes(seqs, cfg, models_dir: str):
+    """Per-frame Depth2Model dumps (Processor.cpp:873-914): one OBJ per
+    frame from the raw disparity, gated by smooth_thres / edge_sz_thres,
+    as Models/model<k>_<i>.obj."""
+    from .io.meshio import write_obj
+    from .ops.meshing import compact_mesh, grid_mesh
+    os.makedirs(models_dir, exist_ok=True)
+    for k, seq in enumerate(seqs):
+        for i in range(seq.disparity.shape[0]):
+            gm = grid_mesh(seq.disparity[i], seq.cams[i],
+                           min_dsp=cfg.min_dsp, max_dsp=cfg.max_dsp,
+                           smooth_thres=cfg.smooth_thres,
+                           edge_sz_thres=cfg.edge_sz_thres)
+            mv, mf, _ = compact_mesh(gm)
+            write_obj(os.path.join(models_dir, f"model{k}_{i}.obj"), mv,
+                      None, mf)
+
+
+def run_align(seqs, cfg, grid: int, result_dir: str, stage=_call, *,
+              backend: str = "tsdf", models_dir: str | None = None):
+    """align -> fuse -> [per-frame meshes] -> TSDF or Poisson ->
+    [AllSeqProj trim] -> largest component, then write SRT.txt, PSR.npts
+    and Model.obj into ``result_dir``. Each step runs as ``stage(name,
+    fn)`` — prep_s, sweep_solve_s, fuse_s, write_mesh_s (with
+    ``models_dir``), tsdf_s or poisson_s, all_seq_proj_s (with
+    cfg.all_seq_proj) and trim_write_s — so a caller can time or profile
+    them. The Poisson depth is min(cfg.psn_dpt_max, 10). Returns (result,
+    points, normals, verts, faces)."""
     from .io.meshio import write_obj, write_npts
     from .io.srt import save_srt
-    from .ops.tsdf import fuse_multi_sequence
     from .pipeline.align_seq import align_sequences, fuse_sequences
     from .pipeline.match_edges import prep_sequence
     from .solvers.unionfind import retain_largest_component
@@ -133,10 +146,38 @@ def run_align(seqs, cfg, grid: int, result_dir: str, stage=_call):
     if not (np.isfinite(pts).all() and np.isfinite(nrm).all()):
         raise FloatingPointError("fuse: non-finite fused points or normals")
     _log(f"fused cloud: {len(pts)} oriented points")
-    verts, faces, _ = stage("tsdf_s", lambda: fuse_multi_sequence(
-        [s.disparity for s in seqs], [s.cams for s in seqs],
-        result.transforms, grid=grid, min_dsp=cfg.min_dsp,
-        max_dsp=cfg.max_dsp))
+    if models_dir is not None:
+        stage("write_mesh_s", lambda: write_frame_meshes(seqs, cfg,
+                                                         models_dir))
+        _log(f"WriteMesh: per-frame Depth2Model OBJs -> {models_dir}")
+
+    if backend == "poisson":
+        # the reference's reconstructor: screened Poisson over the fused
+        # oriented cloud (RunPoisson on PSR.npts, Processor.cpp:1042)
+        from .ops.poisson import reconstruct_poisson
+        depth = min(cfg.psn_dpt_max, 10)
+        if cfg.psn_dpt_max > 10:
+            _log(f"Poisson depth capped at 10 (PsnDptMax {cfg.psn_dpt_max})")
+        dev = seqs[0].disparity.device
+        verts, faces = stage("poisson_s", lambda: reconstruct_poisson(
+            pts, nrm, depth=depth, device=dev))
+    else:
+        from .ops.tsdf import fuse_multi_sequence
+        verts, faces, _ = stage("tsdf_s", lambda: fuse_multi_sequence(
+            [s.disparity for s in seqs], [s.cams for s in seqs],
+            result.transforms, grid=grid, min_dsp=cfg.min_dsp,
+            max_dsp=cfg.max_dsp))
+
+    if cfg.all_seq_proj:
+        # AllSeqProj trim (Processor.cpp:1064-1102): keep only vertices
+        # that project into every sequence's cameras
+        from .ops.segmentation import trim_mesh_by_all_cameras
+        n_before = len(verts)
+        verts, faces, _ = stage("all_seq_proj_s",
+                                lambda: trim_mesh_by_all_cameras(
+                                    verts, faces, None, result.transforms,
+                                    [s.cams for s in seqs]))
+        _log(f"AllSeqProj trim: {n_before} -> {len(verts)} verts")
 
     def trim_write():
         v, f, _ = retain_largest_component(verts, faces)
@@ -150,7 +191,10 @@ def run_align(seqs, cfg, grid: int, result_dir: str, stage=_call):
     return result, pts, nrm, verts, faces
 
 
-def cmd_align(args) -> int:
+def cmd_align(args, stage=_call) -> int:
+    """The align command; ``stage`` as in ``run_align`` (it also times
+    ``ingest_s`` for --config)."""
+    from .config import load_legacy_config
     from .io.manifest import StageManifest, hash_arrays
 
     device = torch.device(args.device)
@@ -158,20 +202,32 @@ def cmd_align(args) -> int:
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(pass --device cpu to run the plain versions)")
     if not args.demo and not args.config:
-        _log("need --demo (see docs/DATA.md for the --config layout)")
+        _log("need --demo or --config (see docs/DATA.md for the layout)")
         return 2
-    cfg = _apply_overrides(demo_config(), args.set)
-    why = _refusal(args, cfg)
+    cfg = (load_legacy_config(args.config) if args.config
+           else demo_config())
+    cfg = _apply_overrides(cfg, args.set)
+    why = _refusal(args)
     if why:
         _log(f"{why} is not ported to multiviewstitch_tpu_torch yet; use "
              "python -m multiviewstitch_tpu.cli for it")
         return 2
 
     t0 = time.perf_counter()
-    seqs, _, _, _ = build_demo_sequences(device)
+    if args.config:
+        from .pipeline.ingest import load_sequences
+        base_dir = os.path.dirname(os.path.abspath(args.config))
+        seqs = stage("ingest_s", lambda: load_sequences(cfg, base_dir,
+                                                        device=device))
+        _log(f"loaded {len(seqs)} sequences from {base_dir}")
+    else:
+        seqs, _, _, _ = build_demo_sequences(device)
     manifest = StageManifest(args.workdir)
     result_dir = manifest.stage_dir("Result")
-    opts = f"{args.grid}:{args.backend}:{args.device}"
+    # checkpoint/resume: skip when the disparities, config and options are
+    # unchanged (the JAX CLI's hash, plus the device)
+    write_mesh = args.write_mesh or cfg.write_mesh
+    opts = f"{args.grid}:{args.backend}:{args.write_mesh}:{args.device}"
     in_hash = hash_arrays(
         cfg=np.frombuffer(repr(cfg).encode(), dtype=np.uint8),
         opts=np.frombuffer(opts.encode(), dtype=np.uint8),
@@ -183,10 +239,15 @@ def cmd_align(args) -> int:
 
     _log(f"aligning {len(seqs)} sequences on {device} ...")
     grid = args.grid or min(1 << cfg.psn_dpt_max, 256)
-    if not args.grid and (1 << cfg.psn_dpt_max) > 256:
+    if (args.backend == "tsdf" and not args.grid and
+            (1 << cfg.psn_dpt_max) > 256):
         _log(f"TSDF grid capped at 256 (PsnDptMax {cfg.psn_dpt_max} -> "
-             f"{1 << cfg.psn_dpt_max}); use --grid to override")
-    _, pts, _, verts, faces = run_align(seqs, cfg, grid, result_dir)
+             f"{1 << cfg.psn_dpt_max}); use --backend poisson for full "
+             "depth or --grid to override")
+    models_dir = manifest.stage_dir("Models") if write_mesh else None
+    _, pts, _, verts, faces = run_align(seqs, cfg, grid, result_dir, stage,
+                                        backend=args.backend,
+                                        models_dir=models_dir)
     manifest.mark_done("align", [os.path.join(result_dir, f)
                                  for f in ("SRT.txt", "PSR.npts",
                                            "Model.obj")],
@@ -203,14 +264,16 @@ def _not_ported(args) -> int:
     return 2
 
 
-def main(argv=None) -> int:
+def main(argv=None, stage=_call) -> int:
+    """Parse ``argv`` and run the command; ``stage`` as in ``run_align``
+    (the align command only)."""
     ap = argparse.ArgumentParser(prog="mvs-torch", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     common = argparse.ArgumentParser(add_help=False)
     common.add_argument("--workdir", default="./mvs_work")
     common.add_argument("--config", default=None,
-                        help="legacy reference config.txt (not ported yet)")
+                        help="legacy reference config.txt")
     common.add_argument("--demo", action="store_true",
                         help="run on synthetic fixtures")
     common.add_argument("--set", action="append", metavar="KEY=VALUE",
@@ -223,10 +286,11 @@ def main(argv=None) -> int:
                    help="TSDF grid resolution (default 2^PsnDptMax capped "
                         "at 256)")
     a.add_argument("--backend", choices=("tsdf", "poisson"), default="tsdf",
-                   help="surface reconstruction backend (poisson: not "
-                        "ported yet)")
+                   help="surface reconstruction backend (the reference's "
+                        "is Poisson, at depth min(PsnDptMax, 10); tsdf is "
+                        "the denser multi-sequence fusion)")
     a.add_argument("--write-mesh", action="store_true",
-                   help="per-frame Depth2Model OBJ dumps (not ported yet)")
+                   help="per-frame Depth2Model OBJ dumps (WriteMesh)")
     a.add_argument("--force", action="store_true",
                    help="recompute even if the manifest says up to date")
     a.add_argument("--refine", nargs="?", const="pose_graph", default=None,
@@ -240,8 +304,10 @@ def main(argv=None) -> int:
         p.set_defaults(fn=_not_ported)
 
     args, extra = ap.parse_known_args(argv)
-    if args.fn is cmd_align and extra:
-        ap.error(f"unrecognized arguments: {' '.join(extra)}")
+    if args.fn is cmd_align:
+        if extra:
+            ap.error(f"unrecognized arguments: {' '.join(extra)}")
+        return cmd_align(args, stage)
     return args.fn(args)
 
 

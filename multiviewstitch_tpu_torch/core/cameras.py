@@ -18,6 +18,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -139,4 +140,96 @@ def unproject_depth_map(cam: CameraBatch, disparity, min_dsp: float,
     uv = pixel_grid(h, w, disparity.dtype, device=disparity.device)
     pts = unproject(cam.expand_dims(2), uv, depth)
     return torch.where(valid[..., None], pts, torch.zeros_like(pts)), valid
+
+
+# ---------------------------------------------------------------------------
+# .act calibration files (host-side text).
+# ---------------------------------------------------------------------------
+
+def load_act(path: str, *, device) -> CameraBatch:
+    """Parse the reference's .act calibration format into a CameraBatch on
+    ``device``.
+
+    Format (LoadCalibrationFromActs, Camera.cpp:74-157):
+      - '#' comment lines; blank lines ignored outside blocks
+      - '<intrinsic parameter>' followed by a line 'fx fy cx cy'
+      - 'start:<i>', 'step:<i>', 'end:<i>'
+      - '<Camera Track>' then per frame: separator line, frame-name line,
+        four rows of a 4x4 [R|t; 0 0 0 1] matrix, separator line.
+    Image size: W = 2*(cx+0.5), H = 2*(cy+0.5)  (Camera.cpp:135-136).
+    """
+    with open(path, "r") as f:
+        lines = f.read().splitlines()
+
+    K = np.zeros((3, 3), np.float64)
+    start = step = end = 0
+    Rs, ts = [], []
+    i = 0
+    n = len(lines)
+    while i < n:
+        s = lines[i].strip()
+        i += 1
+        if not s or s.startswith("#"):
+            continue
+        if s == "<intrinsic parameter>":
+            vals = [float(x) for x in lines[i].split()]
+            i += 1
+            K[0, 0], K[1, 1], K[0, 2], K[1, 2] = vals[:4]
+            K[2, 2] = 1.0
+        elif s == "<Camera Track>":
+            nframes = 0 if step == 0 else (end - start) // step + 1
+            for _ in range(max(nframes, 0)):
+                i += 2  # separator + frame-name lines
+                rows = []
+                for _r in range(4):
+                    rows.append([float(x) for x in lines[i].split()])
+                    i += 1
+                i += 1  # trailing separator
+                M = np.asarray(rows[:3], np.float64)
+                Rs.append(M[:, :3])
+                ts.append(M[:, 3])
+            break
+        elif ":" in s:
+            key, _, val = s.partition(":")
+            key = key.strip()
+            if key == "start":
+                start = int(val)
+            elif key == "step":
+                step = int(val)
+            elif key == "end":
+                end = int(val)
+
+    nf = len(Rs)
+    R = np.stack(Rs) if nf else np.zeros((0, 3, 3))
+    t = np.stack(ts) if nf else np.zeros((0, 3))
+    width = int(2 * (K[0, 2] + 0.5))
+    height = int(2 * (K[1, 2] + 0.5))
+    Kb = np.broadcast_to(K, (nf, 3, 3))
+    f32 = dict(dtype=torch.float32, device=device)
+    return CameraBatch(torch.as_tensor(Kb.astype(np.float32), **f32),
+                       torch.as_tensor(R.astype(np.float32), **f32),
+                       torch.as_tensor(t.astype(np.float32), **f32),
+                       width, height)
+
+
+def save_act(path: str, cam: CameraBatch, start: int = 0, step: int = 1):
+    """Write a CameraBatch in the reference .act format (round-trips
+    load_act; the same text as the JAX package's save_act)."""
+    K = cam.K.cpu().numpy()
+    R = cam.R.cpu().numpy()
+    t = cam.t.cpu().numpy()
+    nf = R.shape[0]
+    with open(path, "w") as f:
+        f.write("# multiviewstitch_tpu calibration\n")
+        f.write("<intrinsic parameter>\n")
+        f.write(f"{K[0,0,0]} {K[0,1,1]} {K[0,0,2]} {K[0,1,2]}\n")
+        f.write(f"start:{start}\nstep:{step}\nend:{start + step * (nf - 1)}\n")
+        f.write("<Camera Track>\n")
+        for fi in range(nf):
+            f.write("----\n")
+            f.write(f"frame{start + fi * step}\n")
+            for r in range(3):
+                f.write(f"{R[fi,r,0]} {R[fi,r,1]} {R[fi,r,2]} {t[fi,r]}\n")
+            f.write("0 0 0 1\n")
+            f.write("----\n")
 

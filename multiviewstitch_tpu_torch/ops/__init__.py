@@ -1,2 +1,2 @@
-"""Per-pixel and per-keypoint operators; K1-K3 sit behind consistency,
-point_sampling and rasterizer."""
+"""Per-pixel, per-keypoint and volume operators; K1-K3 sit behind
+consistency, point_sampling and rasterizer."""

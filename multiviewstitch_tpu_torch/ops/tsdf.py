@@ -67,6 +67,8 @@ class SurfaceMesh(NamedTuple):
     faces: torch.Tensor       # [cap_f,3], -1 padded
     num_vertices: int
     num_faces: int
+    cells: torch.Tensor       # [cap_v,3] int64 (z,y,x) owning grid cell, -1
+    #                           padded: exact identity for cross-slab welds
 
 
 _CORNERS = [(0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1),
@@ -76,14 +78,16 @@ _EDGES = [(0, 1), (0, 2), (0, 4), (1, 3), (1, 5), (2, 3), (2, 6),
 
 
 def surface_nets(tsdf: TSDF, *, max_vertices: int = 65536,
-                 max_faces: int = 131072) -> SurfaceMesh:
+                 max_faces: int = 131072,
+                 min_weight: float = 1.0) -> SurfaceMesh:
     """Extract the zero isosurface of a [Gz,Gy,Gx] TSDF (storage axes
-    z, y, x; vertex coordinates x, y, z) over voxels seen by >= 1 frame,
-    keeping the first max_vertices / max_faces like the JAX package."""
+    z, y, x; vertex coordinates x, y, z) over voxels whose weight is
+    >= ``min_weight``, keeping the first max_vertices / max_faces like the
+    JAX package. The grid may be rectangular (Poisson's Z-slabs)."""
     v = tsdf.values
     dev = v.device
     Gz, Gy, Gx = v.shape
-    observed = tsdf.weights >= 1.0
+    observed = tsdf.weights >= min_weight
 
     def corner(a, di, dj, dk):
         return a[di:Gz - 1 + di, dj:Gy - 1 + dj, dk:Gx - 1 + dk]
@@ -130,6 +134,8 @@ def surface_nets(tsdf: TSDF, *, max_vertices: int = 65536,
     world = tsdf.origin + tsdf.spacing * (base + vpos.reshape(-1, 3)[sel])
     verts = torch.zeros((max_vertices, 3), dtype=torch.float32, device=dev)
     verts[ids[sel]] = world
+    cells = torch.full((max_vertices, 3), -1, dtype=torch.int64, device=dev)
+    cells[ids[sel]] = torch.stack([cz, cy, cx], -1)
     id_grid = torch.where(has_surf.reshape(-1), ids,
                           torch.full_like(ids, -1)).reshape(has_surf.shape)
     del vpos
@@ -167,7 +173,7 @@ def surface_nets(tsdf: TSDF, *, max_vertices: int = 65536,
     num_f = int(allf.shape[0])
     faces = torch.full((max_faces, 3), -1, dtype=torch.int64, device=dev)
     faces[:num_f] = allf
-    return SurfaceMesh(verts, faces, num_v, num_f)
+    return SurfaceMesh(verts, faces, num_v, num_f, cells)
 
 
 def fuse_multi_sequence(seq_disparities, seq_cams, transforms, *,

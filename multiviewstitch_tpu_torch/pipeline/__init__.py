@@ -1,1 +1,1 @@
-"""Stage orchestration (align) and synthetic fixtures."""
+"""Stage orchestration (align), on-disk ingest and synthetic fixtures."""

@@ -23,6 +23,7 @@ from ..core.cameras import CameraBatch, unproject_depth_map
 from ..ops.features import detect_batch
 from ..ops.filters import dedup_matches, ssd_filter, gap_filter
 from ..ops.match import match_descriptors
+from ..ops.segmentation import foreground_from_disparity
 from ..ops.view_synth import synthesize_views, view_angles
 from ..solvers.srt import estimate_srt_ransac, remove_outliers
 
@@ -58,17 +59,20 @@ def _margins(cfg: StitchConfig):
 
 
 def prep_sequence(seq, cfg: StitchConfig) -> SequencePrep:
-    """Virtual views, SIFT features and unprojection maps of one sequence."""
-    if cfg.segment:
-        raise NotImplementedError("segment (foreground masking) is not "
-                                  "ported yet")
+    """Foreground mask (``segment``), virtual views, SIFT features and
+    unprojection maps of one sequence."""
     gray, cams = seq.gray, seq.cams
+    g = gray    # features see the masked frames, the SSD filter the raw ones
+    if cfg.segment:
+        fg = foreground_from_disparity(seq.disparity, cfg.min_dsp,
+                                       cfg.max_dsp)
+        g = torch.where(fg, gray, torch.zeros_like(gray))
     n, h, w = gray.shape
     v = int(cfg.view_count)
     angles = view_angles(v, float(cfg.rot_angle), device=gray.device)
     views, texs = [], []
     for i in range(n):
-        sv = synthesize_views(gray[i][..., None], cams.K[i], cams.R[i],
+        sv = synthesize_views(g[i][..., None], cams.K[i], cams.R[i],
                               angles, axis=int(cfg.axis))
         views.append(sv.images[..., 0])
         texs.append(sv.tex_index)

@@ -153,14 +153,57 @@ def test_cli_align_demo_writes_results(tmp_path):
 
 
 @pytest.mark.parametrize("extra", [
-    ["--refine"], ["--refine", "ba"], ["--backend", "poisson"],
-    ["--write-mesh"], ["--config", "config.txt"], ["--debug-artifacts"],
+    ["--backend", "poisson"], ["--write-mesh"], ["--config"],
     ["--set", "all_seq_proj=true"], ["--set", "segment=1"]])
+def test_cli_runs_the_paths_ported_since(tmp_path, extra, capsys):
+    """Each path the CLI used to refuse, on the demo inputs (--config: the
+    demo sequences written in the reference's layout)."""
+    from multiviewstitch_tpu_torch.cli import (build_demo_sequences, main,
+                                               run_align)
+    from multiviewstitch_tpu_torch.pipeline.ingest import save_sequence_dir
+    wd = tmp_path / "work"
+    args = ["align", "--device", "cpu", "--workdir", str(wd), "--grid", "32",
+            "--set", "psn_dpt_max=5"]
+    if extra == ["--config"]:
+        seqs, *_ = build_demo_sequences("cpu")
+        for k, seq in enumerate(seqs):
+            save_sequence_dir(str(tmp_path / f"s{k}"), seq)
+        (tmp_path / "imgPathList.txt").write_text("./s0/\n./s1/\n")
+        (tmp_path / "config.txt").write_text(
+            "ImgPathList ./imgPathList.txt\nViewCount 1\nMinMatchCount 7\n"
+            "IterNum 256\nSampleIterval 4\nSSDWin 3\nSSDError 40.0\n"
+            "PixelError 12.0\nHLMarginRatio 0.02\nHRMarginRatio 0.02\n"
+            "VLMarginRatio 0.02\nVRMarginRatio 0.02\nMinDsp 0.001\n"
+            "MaxDsp 10.0\nNbrFrmNum 1\nMinConf 0.5\nMaxDspErr 0.05\n")
+        extra = ["--config", str(tmp_path / "config.txt"), "--set",
+                 "max_keypoints=256"]
+    else:
+        args.append("--demo")
+    stages = []
+    assert main(args + extra,
+                stage=lambda n, fn: stages.append(n) or fn()) == 0
+    assert "not ported" not in capsys.readouterr().out
+    for f in ("SRT.txt", "PSR.npts", "Model.obj"):
+        assert (wd / "Result" / f).stat().st_size > 0, f
+    Ts = load_srt(str(wd / "Result" / "SRT.txt"))
+    assert abs(float(Ts[0].s) - 1.25) < 0.1
+    new_stage = {"--backend": "poisson_s", "--write-mesh": "write_mesh_s",
+                 "--config": "ingest_s", "--set": None}[extra[0]]
+    if extra[1:2] == ["all_seq_proj=true"]:
+        new_stage = "all_seq_proj_s"
+    if new_stage:
+        assert new_stage in stages
+    assert ("tsdf_s" in stages) == (extra[:2] != ["--backend", "poisson"])
+    models = wd / "Models"
+    assert (len(os.listdir(models)) == 10) if extra == ["--write-mesh"] \
+        else not models.exists()
+
+
+@pytest.mark.parametrize("extra", [
+    ["--refine"], ["--refine", "ba"], ["--debug-artifacts"]])
 def test_cli_refuses_paths_not_ported(tmp_path, extra, capsys):
     from multiviewstitch_tpu_torch.cli import main
-    args = ["align", "--device", "cpu", "--workdir", str(tmp_path)]
-    if "--config" not in extra:
-        args.append("--demo")
+    args = ["align", "--device", "cpu", "--workdir", str(tmp_path), "--demo"]
     assert main(args + extra) == 2
     assert "not ported" in capsys.readouterr().out
     assert not (tmp_path / "Result" / "SRT.txt").exists()

@@ -351,3 +351,78 @@ def test_wrappers_check_their_inputs(scene):
     with pytest.raises(ValueError):
         kernels.consistency(d, cams.K.cpu(), cams.R, cams.t, min_dsp=0.0,
                             max_dsp=1.0, reproj_err=4)
+
+
+# --- Poisson and the per-frame meshes: plain PyTorch on the card against
+# the same code on the CPU (no CUDA kernel of their own yet)
+
+
+def _sphere_cloud(n=3000, seed=0):
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(n, 3))
+    v /= np.linalg.norm(v, axis=1, keepdims=True)
+    return v.astype(np.float32), v.astype(np.float32)
+
+
+@pytest.mark.parametrize("depth", [6, 8])
+def test_reconstruct_poisson_cuda_matches_cpu(cuda, depth):
+    """Tolerance: the card's splat is an atomic scatter-add, so its float
+    sums come in another order: vertex and face counts within 1 %, the
+    symmetric chamfer distance under 0.05 voxel."""
+    from multiviewstitch_tpu_torch.ops.poisson import reconstruct_poisson
+    pts, nrm = _sphere_cloud()
+    gv, gf = reconstruct_poisson(pts, nrm, depth=depth, device=cuda)
+    cv, cf = reconstruct_poisson(pts, nrm, depth=depth, device="cpu")
+    assert len(cv) > 1000
+    assert abs(len(gv) - len(cv)) <= 0.01 * len(cv)
+    assert abs(len(gf) - len(cf)) <= 0.01 * len(cf)
+    g, c = torch.as_tensor(gv, device=cuda), torch.as_tensor(cv, device=cuda)
+
+    def mean_nearest(p, q):
+        return torch.cat([torch.cdist(a, q).min(1).values
+                          for a in p.split(4096)]).mean()
+    ch = 0.5 * (mean_nearest(g, c) + mean_nearest(c, g))
+    voxel = 2.4 / ((1 << depth) - 1)
+    assert float(ch) < 0.05 * voxel
+    r = np.linalg.norm(gv, axis=1)
+    assert abs(r.mean() - 1.0) < 0.01
+
+
+def test_poisson_solvers_make_no_host_sync(cuda):
+    import warnings
+    from multiviewstitch_tpu_torch.ops import poisson as P
+    g = torch.Generator(device=cuda).manual_seed(0)
+    b = torch.randn(64, 64, 64, generator=g, device=cuda)
+    x = torch.zeros_like(b)
+    P._cg(b[:32, :32, :32].contiguous(), 1e-3, 3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            P._cg(b[:32, :32, :32].contiguous(), 1e-3, 20)
+            P._vcycle(x, b, 1e-3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(c.message) for c in caught
+             if "synchroniz" in str(c.message)]
+    assert syncs == []
+    assert torch.isfinite(x).all()
+
+
+@pytest.mark.parametrize("edge", [0.0, 0.03])
+def test_grid_mesh_cuda_matches_cpu(cuda, edge):
+    """Tolerance: faces and texture indices exact, vertices atol 1e-6."""
+    from multiviewstitch_tpu_torch.ops.meshing import grid_mesh
+    sc = make_scene(n_frames=1, width=160, height=120, bumps=0.15, n_lat=64,
+                    n_lon=96, arc_deg=60.0, device=cuda)
+    d = _noisy(sc, cuda)[0]
+    kw = dict(min_dsp=1e-3, max_dsp=10.0, smooth_thres=0.5,
+              edge_sz_thres=edge)
+    gm = grid_mesh(d, sc.cams[0], **kw)
+    cm = grid_mesh(d.cpu(), sc.cams[0].to("cpu"), **kw)
+    assert gm.num_faces == cm.num_faces > 100
+    assert torch.equal(gm.faces.cpu(), cm.faces)
+    assert torch.equal(gm.tex_index.cpu(), cm.tex_index)
+    torch.testing.assert_close(gm.vertices.cpu(), cm.vertices, atol=1e-6,
+                               rtol=0)
