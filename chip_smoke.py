@@ -42,17 +42,18 @@ Phases, in order (any failure raises and the exit code is non-zero):
      the ground truth, PSR.npts, Model.obj's vertex RMSE to the true
      surface, the ten per-frame meshes and that K1 and K2 launched; logs
      per-stage synced wall times, the Poisson stage's peak device memory,
-     the grid and the mesh sizes; then a warm pass at psn_dpt_max 8
-     (256^3, whole-grid extraction), the host time of the depth-10
-     mesh's largest-component trim, the Poisson steps (field, dilation,
-     extraction: synced s and peak GB) at both depths, and the depth-10
-     Poisson stage alone under torch.profiler (device busy share)
+     the grid and the mesh sizes; the depth-10 run's Poisson stage runs
+     under torch.profiler (device busy share, and each step's host span
+     and device time from the ``poisson.*`` record_function ranges);
+     then a warm pass at psn_dpt_max 8 (256^3, whole-grid extraction) and
+     the host time of the depth-10 mesh's largest-component trim
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -475,11 +476,23 @@ def phase_slice(dev):
     return launches
 
 
+# record_function ranges of ops/poisson.reconstruct_poisson's steps
+POISSON_STEPS = ("poisson.field", "poisson.dilate", "poisson.extract")
+
+
+def device_events(prof):
+    """The device-side events (kernels, memcpys, memsets) of a profile,
+    without the device-side copies of the record_function ranges."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.name not in POISSON_STEPS]
+
+
 def device_busy_us(prof):
     """(busy us, event count): the union of the device-side (kernel,
     memcpy, memset) events' intervals of one profiled region."""
-    iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
+    iv = sorted((e.time_range.start, e.time_range.end)
+                for e in device_events(prof))
     busy, end = 0.0, float("-inf")
     for a, b in iv:
         if b > end:
@@ -491,10 +504,9 @@ def device_busy_us(prof):
 def top_device_events(prof, n=5):
     """The ``n`` device-side events of a profile with the most time."""
     by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us, k = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.elapsed_us(), k + 1)
+    for e in device_events(prof):
+        us, k = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), k + 1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
     return "; ".join(f"{nm[:60]} {us / 1e3:.3f} ms x{k}"
                      for nm, (us, k) in top)
@@ -573,23 +585,31 @@ def write_config_layout(dev, root):
     return path, gt, moved
 
 
-def config_run(dev, config, workdir, depth):
+def config_run(dev, config, workdir, depth, profile_poisson=False):
     """``align --config`` through cli.main with every flag of the slice;
     returns (stage seconds and the Poisson stage's peak GB, stage
-    outputs)."""
+    outputs, the Poisson stage's torch.profiler profile or None)."""
+    from torch.profiler import ProfilerActivity, profile
     from multiviewstitch_tpu_torch.cli import main
-    t, outs = {}, {}
+    t, outs, profs = {}, {}, []
 
     def stage(name, fn):
         torch.cuda.synchronize()
-        if name == "poisson_s":
+        poisson = name == "poisson_s"
+        if poisson:
             torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        t[name] = time.perf_counter() - t0
-        if name == "poisson_s":
+        prof = (profile(activities=[ProfilerActivity.CPU,
+                                    ProfilerActivity.CUDA])
+                if poisson and profile_poisson else contextlib.nullcontext())
+        with prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            t[name] = time.perf_counter() - t0
+        if poisson:
             t["poisson_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+            if profile_poisson:
+                profs.append(prof)
         outs[name] = out
         return out
     argv = ["align", "--config", config, "--workdir", workdir, "--backend",
@@ -600,7 +620,7 @@ def config_run(dev, config, workdir, depth):
         argv += ["--set", f"psn_dpt_max={depth}"]
     rc = main(argv, stage=stage)
     assert rc == 0, f"cli align --config returned {rc}"
-    return t, outs
+    return t, outs, (profs[0] if profs else None)
 
 
 def check_config_run(name, dev, wd, gt, moved, t):
@@ -638,59 +658,46 @@ def check_config_run(name, dev, wd, gt, moved, t):
     return len(v), len(f)
 
 
-def poisson_breakdown(pts, nrm, depth, dev):
-    """Synced wall seconds and peak device GB of each top-level step of
-    ``reconstruct_poisson`` at ``depth``: the field (splat, blur, solve,
-    iso level, weight grid), the occupancy dilation and the extraction
-    (Z-slabs above grid 256, with the host weld)."""
-    from multiviewstitch_tpu_torch.ops import poisson as P
-    steps = ("poisson_field", "_dilate_occupancy",
-             "_extract_mesh_slabs" if depth > 8 else "_extract_mesh")
-    saved = {k: getattr(P, k) for k in steps}
-    rows = {}
-
-    def timed(name):
-        def run(*a, **kw):
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            out = saved[name](*a, **kw)
-            torch.cuda.synchronize()
-            rows[name] = (time.perf_counter() - t0,
-                          torch.cuda.max_memory_allocated() / 1e9)
-            return out
-        return run
-    try:
-        for k in steps:
-            setattr(P, k, timed(k))
-        P.reconstruct_poisson(pts, nrm, depth=depth, device=dev)
-    finally:
-        for k, fn in saved.items():
-            setattr(P, k, fn)
-    log(f"poisson_s steps at depth {depth} (synced s, peak GB): " + ", ".join(
-        f"{k} {t:.4f} s / {gb:.3f} GB" for k, (t, gb) in rows.items()))
+def log_poisson_profile(prof, wall, depth):
+    """Device busy share of a profiled Poisson stage, and each step's host
+    span and the device time of the kernels it launched (its
+    record_function range)."""
+    busy, n = device_busy_us(prof)
+    log(f"profile poisson_s at depth {depth}: wall {wall:.4f} s "
+        f"(profiled), device busy {busy / 1e6:.4f} s "
+        f"({100 * busy / 1e6 / wall:.1f} %), {n} device events")
+    steps = {e.name: e for e in prof.events()
+             if e.name in POISSON_STEPS
+             and e.device_type == torch.autograd.DeviceType.CPU}
+    log(f"poisson_s steps at depth {depth} (host span s / device s): " +
+        ", ".join(f"{k} {steps[k].time_range.elapsed_us() / 1e6:.4f} / "
+                  f"{steps[k].device_time_total / 1e6:.4f}"
+                  for k in POISSON_STEPS if k in steps))
+    log("    top device events: " + top_device_events(prof))
+    assert busy > 0, "the profiler saw no device-side Poisson events"
 
 
 def phase_config(dev):
     """``align --config`` on the reference's on-disk layout with Poisson
     at the default depth 10, segment, AllSeqProj and per-frame meshes."""
-    from torch.profiler import ProfilerActivity, profile
-    from multiviewstitch_tpu_torch.ops.poisson import reconstruct_poisson
     with tempfile.TemporaryDirectory() as root:
         config, gt, moved = write_config_layout(dev, root)
         wd = os.path.join(root, "work10")
         kernels.reset_launch_counts()
-        t, outs = config_run(dev, config, wd, CONFIG_DEPTHS[0])
+        t, outs, prof = config_run(dev, config, wd, CONFIG_DEPTHS[0],
+                                   profile_poisson=True)
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
         log(f"launches during the config run: {launches}")
-        check_config_run("PsnDptMax 10 (Poisson 1024^3)", dev, wd, gt, moved,
-                         t)
+        check_config_run("PsnDptMax 10 (Poisson 1024^3; poisson_s "
+                         "profiled)", dev, wd, gt, moved, t)
         for k in ("consistency", "oriented_points"):
             assert launches[k] > 0, f"{k} was not launched by align --config"
+        log_poisson_profile(prof, t["poisson_s"],
+                            CONFIG_DEPTHS[0] or 10)
         depth = CONFIG_DEPTHS[1]
         wd = os.path.join(root, f"work{depth}")
-        t8, _ = config_run(dev, config, wd, depth)
+        t8, _, _ = config_run(dev, config, wd, depth)
         check_config_run(f"psn_dpt_max {depth} (Poisson {1 << depth}^3, "
                          "warm)", dev, wd, gt, moved, t8)
         from multiviewstitch_tpu_torch.solvers.unionfind import (
@@ -701,22 +708,6 @@ def phase_config(dev):
             f"{len(outs['all_seq_proj_s'][0])} -> {len(kv)} verts, "
             f"{len(kf)} faces in {time.perf_counter() - t0:.4f} s (host; "
             f"the rest of trim_write_s is writing)")
-        pts, nrm = outs["fuse_s"]
-        full = 10 if CONFIG_DEPTHS[0] is None else CONFIG_DEPTHS[0]
-        for d in (full, depth):
-            poisson_breakdown(pts, nrm, d, dev)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            reconstruct_poisson(pts, nrm, depth=full, device=dev)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        busy, n = device_busy_us(prof)
-        log(f"profile poisson_s at depth {full}: wall {wall:.4f} s "
-            f"(profiled), device busy {busy / 1e6:.4f} s "
-            f"({100 * busy / 1e6 / wall:.1f} %), {n} device events")
-        log("    top device events: " + top_device_events(prof))
 
 
 def main():

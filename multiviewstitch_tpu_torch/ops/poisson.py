@@ -26,7 +26,10 @@ Nothing in the solvers reads a value back to the host.
 
 Above grid 256 the surface is extracted in overlapping Z-slabs (each face
 owned by exactly one slab; duplicated halo vertices are welded on the host
-by integer cell key).
+by integer cell key). Unlike the JAX package, the extraction has no vertex
+or face capacity, so no mesh is truncated. The three steps (field,
+dilation, extraction) run under ``torch.profiler.record_function`` ranges
+``poisson.field``, ``poisson.dilate`` and ``poisson.extract``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from .tsdf import TSDF, surface_nets
 
@@ -243,21 +247,18 @@ def _dilate_occupancy(wgt, radius: int):
     return occ
 
 
-def _extract_mesh(field, occ, origin, spacing, max_vertices=65536,
-                  max_faces=131072):
-    """surface_nets + host-side compaction. Sign flip: chi > iso inside
-    (normals outward); surface nets expects negative inside like a TSDF.
-    Returns numpy (verts, faces, cells) — cells are the per-vertex integer
-    (z,y,x) owning grid cells (exact identity for cross-slab welds)."""
+def _extract_mesh(field, occ, origin, spacing):
+    """Uncapped surface_nets, copied to the host. Sign flip: chi > iso
+    inside (normals outward); surface nets expects negative inside like a
+    TSDF. Returns numpy (verts, faces, cells) — cells are the per-vertex
+    integer (z,y,x) owning grid cells (exact identity for cross-slab
+    welds)."""
     tsdf_like = TSDF(-field, occ.to(field.dtype), origin, float(spacing))
-    mesh = surface_nets(tsdf_like, min_weight=0.5,
-                        max_vertices=max_vertices, max_faces=max_faces)
-    nv, nf = mesh.num_vertices, mesh.num_faces
-    verts = mesh.vertices[:nv].cpu().numpy()
-    cells = mesh.cells[:nv].cpu().numpy().astype(np.int32)
-    faces = mesh.faces[:nf].cpu().numpy().astype(np.int32)
-    faces = faces[(faces >= 0).all(1) & (faces < nv).all(1)]
-    return verts, faces, cells
+    mesh = surface_nets(tsdf_like, min_weight=0.5, max_vertices=None,
+                        max_faces=None)
+    return (mesh.vertices.cpu().numpy(),
+            mesh.faces.cpu().numpy().astype(np.int32),
+            mesh.cells.cpu().numpy().astype(np.int32))
 
 
 def _extract_mesh_slabs(field, occ, origin, spacing, slab: int = 64,
@@ -281,8 +282,7 @@ def _extract_mesh_slabs(field, occ, origin, spacing, slab: int = 64,
         v, f, c = _extract_mesh(field[lo:hi], occ[lo:hi],
                                 torch.as_tensor(sub_origin,
                                                 device=field.device),
-                                spacing, max_vertices=131072,
-                                max_faces=262144)
+                                spacing)
         if len(f) == 0:
             continue
         c = c.astype(np.int64)
@@ -318,17 +318,14 @@ def reconstruct_poisson(points: np.ndarray, normals: np.ndarray, *,
                         depth: int = 7, margin: float = 0.1,
                         cg_iters: int = 300, support_radius: int = 6,
                         solver: str = "auto", vcycles: int = 12,
-                        grid_override: int | None = None,
                         device) -> Tuple[np.ndarray, np.ndarray]:
     """Full Poisson pipeline on ``device``: oriented numpy cloud ->
     numpy (vertices, faces). ``depth`` mirrors psn_dpt: grid = 2^depth
     (the reference runs 8-10, config.txt:33-34). Extraction is restricted
     to cells within ``support_radius`` voxels of any sample (far-field chi
     is unconstrained, like the octree's adaptive support). Grids from 256
-    use the multigrid solver; above 256 the extraction runs in Z-slabs.
-    ``grid_override`` sets a grid that is not a power of two (it must stay
-    divisible by 2 down to the coarsest multigrid level)."""
-    grid = grid_override if grid_override else (1 << depth)
+    use the multigrid solver; above 256 the extraction runs in Z-slabs."""
+    grid = 1 << depth
     mins = points.min(0)
     maxs = points.max(0)
     span = (maxs - mins).max()
@@ -338,21 +335,20 @@ def reconstruct_poisson(points: np.ndarray, normals: np.ndarray, *,
     origin = torch.as_tensor(mins, **f32)
 
     pts = torch.as_tensor(points, **f32)
-    field, wgt = poisson_field(
-        pts, torch.as_tensor(normals, **f32),
-        torch.ones(len(points), dtype=torch.bool, device=device), origin,
-        spacing, grid=grid, cg_iters=cg_iters, solver=solver,
-        vcycles=vcycles)
-    occ = _dilate_occupancy(wgt, support_radius)
+    with record_function("poisson.field"):
+        field, wgt = poisson_field(
+            pts, torch.as_tensor(normals, **f32),
+            torch.ones(len(points), dtype=torch.bool, device=device), origin,
+            spacing, grid=grid, cg_iters=cg_iters, solver=solver,
+            vcycles=vcycles)
+    with record_function("poisson.dilate"):
+        occ = _dilate_occupancy(wgt, support_radius)
     del wgt
 
-    if grid <= 256:
-        # caps sized for a fully-occupied 256^3 surface
-        verts, faces, _ = _extract_mesh(field, occ, origin, spacing,
-                                        max_vertices=1 << 19,
-                                        max_faces=1 << 20)
-        return verts, faces
-    # thinner slabs past 512: the per-slab work arrays scale with
-    # slab * G^2 and sit next to the field
-    return _extract_mesh_slabs(field, occ, origin, spacing,
-                               slab=64 if grid <= 512 else 32)
+    with record_function("poisson.extract"):
+        if grid <= 256:
+            return _extract_mesh(field, occ, origin, spacing)[:2]
+        # thinner slabs past 512: the per-slab work arrays scale with
+        # slab * G^2 and sit next to the field
+        return _extract_mesh_slabs(field, occ, origin, spacing,
+                                   slab=64 if grid <= 512 else 32)

@@ -6,7 +6,7 @@ PyTorch counterpart of ``multiviewstitch_tpu/ops/tsdf.py``:
      depth, truncated to +-trunc and averaged over observing frames);
   2. surface nets: one vertex per sign-change cell (mean of its edge
      zero crossings), two triangles per grid edge with a sign change,
-     with the JAX package's static vertex/face capacities.
+     with the JAX package's vertex/face capacities, or none (Poisson).
 """
 
 from __future__ import annotations
@@ -77,13 +77,14 @@ _EDGES = [(0, 1), (0, 2), (0, 4), (1, 3), (1, 5), (2, 3), (2, 6),
           (3, 7), (4, 5), (4, 6), (5, 7), (6, 7)]
 
 
-def surface_nets(tsdf: TSDF, *, max_vertices: int = 65536,
-                 max_faces: int = 131072,
+def surface_nets(tsdf: TSDF, *, max_vertices: int | None = 65536,
+                 max_faces: int | None = 131072,
                  min_weight: float = 1.0) -> SurfaceMesh:
     """Extract the zero isosurface of a [Gz,Gy,Gx] TSDF (storage axes
     z, y, x; vertex coordinates x, y, z) over voxels whose weight is
     >= ``min_weight``, keeping the first max_vertices / max_faces like the
-    JAX package. The grid may be rectangular (Poisson's Z-slabs)."""
+    JAX package; a cap of None keeps every vertex or face, in buffers of
+    exactly that size. The grid may be rectangular (Poisson's Z-slabs)."""
     v = tsdf.values
     dev = v.device
     Gz, Gy, Gx = v.shape
@@ -125,16 +126,18 @@ def surface_nets(tsdf: TSDF, *, max_vertices: int = 65536,
 
     flat_surf = has_surf.reshape(-1)
     ids = torch.cumsum(flat_surf.to(torch.int64), 0) - 1
-    num_v = int(min(int(flat_surf.sum()), max_vertices))
-    sel = (flat_surf & (ids < max_vertices)).nonzero()[:, 0]
+    n_surf = int(flat_surf.sum())
+    cap_v = n_surf if max_vertices is None else max_vertices
+    num_v = min(n_surf, cap_v)
+    sel = (flat_surf & (ids < cap_v)).nonzero()[:, 0]
     cz = sel // ((Gy - 1) * (Gx - 1))
     cy = (sel // (Gx - 1)) % (Gy - 1)
     cx = sel % (Gx - 1)
     base = torch.stack([cx, cy, cz], -1).to(torch.float32)
     world = tsdf.origin + tsdf.spacing * (base + vpos.reshape(-1, 3)[sel])
-    verts = torch.zeros((max_vertices, 3), dtype=torch.float32, device=dev)
+    verts = torch.zeros((cap_v, 3), dtype=torch.float32, device=dev)
     verts[ids[sel]] = world
-    cells = torch.full((max_vertices, 3), -1, dtype=torch.int64, device=dev)
+    cells = torch.full((cap_v, 3), -1, dtype=torch.int64, device=dev)
     cells[ids[sel]] = torch.stack([cz, cy, cx], -1)
     id_grid = torch.where(has_surf.reshape(-1), ids,
                           torch.full_like(ids, -1)).reshape(has_surf.shape)
@@ -169,9 +172,11 @@ def surface_nets(tsdf: TSDF, *, max_vertices: int = 65536,
                                  torch.where(flip, q[2], q[1])], -1))
         tris.append(torch.stack([q[0], torch.where(flip, q[2], q[3]),
                                  torch.where(flip, q[3], q[2])], -1))
-    allf = torch.cat(tris)[:max_faces]
+    allf = torch.cat(tris)
+    cap_f = len(allf) if max_faces is None else max_faces
+    allf = allf[:cap_f]
     num_f = int(allf.shape[0])
-    faces = torch.full((max_faces, 3), -1, dtype=torch.int64, device=dev)
+    faces = torch.full((cap_f, 3), -1, dtype=torch.int64, device=dev)
     faces[:num_f] = allf
     return SurfaceMesh(verts, faces, num_v, num_f, cells)
 

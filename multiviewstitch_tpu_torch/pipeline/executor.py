@@ -4,7 +4,7 @@ The port's copy of ``prefetch_map`` from
 ``multiviewstitch_tpu/pipeline/executor.py``. The reference runs every
 stage strictly serially on one thread (AlignmentSeq,
 Processor.cpp:835-1106); ``prefetch_map`` runs the producer for items
-i+1..i+depth on worker threads while the caller consumes item i.
+i+1..i+DEPTH on worker threads while the caller consumes item i.
 Exceptions propagate at the consuming position, order is preserved, and the
 pool tears down cleanly on early exit. ``pipeline/ingest.load_sequences``
 uses it to decode directory i+1 while directory i moves to the device.
@@ -19,22 +19,18 @@ from typing import Callable, Iterable, Iterator, TypeVar
 T = TypeVar("T")
 R = TypeVar("R")
 
+DEPTH = 2   # items computed ahead of the consumer (double-buffered)
 
-def prefetch_map(fn: Callable[[T], R], items: Iterable[T], *,
-                 depth: int = 2) -> Iterator[R]:
-    """Yield fn(item) in order, computing up to ``depth`` items ahead on
-    background threads (double-buffered for depth=2)."""
-    if depth < 1:
-        for it in items:
-            yield fn(it)
-        return
-    it = iter(items)
-    with ThreadPoolExecutor(max_workers=depth) as pool:
+
+def prefetch_map(fn: Callable[[T], R], items: Iterable[T]) -> Iterator[R]:
+    """Yield fn(item) in order, computing up to ``DEPTH`` items ahead on
+    background threads."""
+    with ThreadPoolExecutor(max_workers=DEPTH) as pool:
         window: collections.deque = collections.deque()
         try:
-            for x in it:
+            for x in items:
                 window.append(pool.submit(fn, x))
-                if len(window) > depth:
+                if len(window) > DEPTH:
                     yield window.popleft().result()
             while window:
                 yield window.popleft().result()

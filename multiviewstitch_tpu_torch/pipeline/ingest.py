@@ -91,8 +91,7 @@ def load_sequence_dir(imgdir: str, cfg: StitchConfig,
 
 
 def load_sequences(cfg: StitchConfig, base_dir: str = ".",
-                   use_check: bool = False, prefetch_depth: int = 2, *,
-                   device) -> List[Sequence]:
+                   use_check: bool = False, *, device) -> List[Sequence]:
     """Load all sequences listed in the config's image-dir list onto
     ``device``: directory i+1 is read and decoded on a worker thread
     (``prefetch_map``) while directory i moves to the device here."""
@@ -100,8 +99,7 @@ def load_sequences(cfg: StitchConfig, base_dir: str = ".",
     dirs = [d if os.path.isabs(d) else os.path.join(base_dir, d)
             for d in cfg.image_dirs]
     return [_to_device(hs, device) for hs in prefetch_map(
-        lambda full: _read_sequence_dir(full, use_check), dirs,
-        depth=prefetch_depth)]
+        lambda full: _read_sequence_dir(full, use_check), dirs)]
 
 
 def save_sequence_dir(imgdir: str, seq: Sequence, start: int = 0):

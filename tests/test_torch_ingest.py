@@ -191,22 +191,24 @@ def test_load_sequences_via_legacy_config(tmp_path, jseqs):
     for t, j in zip(seqs, jseq):
         _assert_seq_equal(t, j)
     assert seqs[0].gray.shape == (N, H, W)
-    # prefetch depth 0 (serial) loads the same
-    serial = ting.load_sequences(cfg, str(tmp_path), prefetch_depth=0,
-                                 device="cpu")
+    # the prefetched load equals reading each directory in turn
+    serial = [ting.load_sequence_dir(str(tmp_path / d), cfg, device="cpu")
+              for d in ("s0", "s1")]
     for a, b in zip(seqs, serial):
         assert torch.equal(a.gray, b.gray)
+        assert torch.equal(a.disparity, b.disparity)
+        assert torch.equal(a.cams.K, b.cams.K)
 
 
 def test_prefetch_map_keeps_order_and_raises_in_place():
-    assert list(prefetch_map(lambda x: x * x, range(7), depth=2)) == \
+    assert list(prefetch_map(lambda x: x * x, range(7))) == \
         [x * x for x in range(7)]
 
     def boom(x):
         if x == 3:
             raise KeyError(x)
         return x
-    it = prefetch_map(boom, range(6), depth=2)
+    it = prefetch_map(boom, range(6))
     assert [next(it) for _ in range(3)] == [0, 1, 2]
     with pytest.raises(KeyError):
         next(it)

@@ -146,6 +146,28 @@ def test_slab_extraction_matches_whole_grid():
         np.testing.assert_allclose(vw[ow], vs[os_], atol=1e-5)
 
 
+def test_slab_extraction_keeps_a_sheet_past_the_jax_caps():
+    """A z-facing sheet puts more vertices (383^2 = 146,689) and faces
+    (2 * 382^2 = 291,848) into one Z-slab than the JAX package's per-slab
+    capacities (131,072 / 262,144): the port's slab and whole-grid
+    extractions keep all of them, one vertex per cell of the sheet's
+    layer at the crossing and two faces per interior quad."""
+    gz, g, z_sheet = 40, 384, 10.3
+    z = torch.arange(gz, dtype=torch.float32)
+    field = (z_sheet - z)[:, None, None].expand(gz, g, g).contiguous()
+    occ = torch.ones(field.shape, dtype=torch.bool)
+    o = torch.zeros(3)
+    vw, fw, _ = TP._extract_mesh(field, occ, o, 1.0)
+    vs, fs = TP._extract_mesh_slabs(field, occ, o, 1.0, slab=32)
+    for v, f in ((vw, fw), (vs, fs)):
+        assert len(v) == (g - 1) ** 2 > 131072
+        assert len(f) == 2 * (g - 2) ** 2 > 262144
+        np.testing.assert_allclose(v[:, 2], z_sheet, atol=1e-5)
+        assert f.min() >= 0 and f.max() < len(v)
+    assert {tuple(sorted(map(tuple, vw[t]))) for t in fw[::97]} <= \
+        {tuple(sorted(map(tuple, vs[t]))) for t in fs}
+
+
 def _chamfer(a, b):
     def one(p, q):
         return np.concatenate([
