@@ -15,9 +15,11 @@ Phases, in order (any failure raises and the exit code is non-zero):
      default settings, nbr_num 5; 78.6 MB of disparity, more than L2); K1
      bit-identical, K2's points bit-identical, conf and the keep mask
      equal on >= 99.99 % of samples, normals within 1e-6 on >= 99.99 % of
-     the samples both keep. K3 bit-identical on four cases (the config-2
-     sphere, a ~100k-face sphere, two close-up giant faces, and a close-up
-     ring of 8 cameras around and inside a 100k-face sphere), with each
+     the samples both keep. K3 bit-identical on six cases (the config-2
+     sphere, a ~100k-face sphere, two close-up giant faces, a close-up
+     ring of 8 cameras around and inside a 100k-face sphere, and phase
+     8's two shapes: the body drawn through inverse(gt) into 12 portrait
+     frames, and render_bench's config-3 ring), with each
      case's largest clipped bbox and (face, tile) pair count (the kernel's
      own total). Each case logs kernel and plain ms (median of 20 timed
      runs, CUDA events), device us per CUDA kernel (torch.profiler) and
@@ -29,7 +31,9 @@ Phases, in order (any failure raises and the exit code is non-zero):
      launched during the run; then once more with the second sequence's
      camera arc centred half a frame step away, so that no keyframe pair
      shares a pose and RANSAC has to reject outliers
-  5. the CLI: ``align --demo --device cuda``
+  5. the CLI: ``align --demo --device cuda``, then ``pipeline --demo
+     --device cuda`` (align, deform, render; checks SRT.txt, PSR.npts,
+     Model.obj, deform.obj and the four DATA/Render rasters)
   6. profile: each stage of the warm slice under torch.profiler; device
      busy time is the union of the device-side events' intervals
   7. config: the config-2 scene (rendered by K3) written in the
@@ -47,6 +51,26 @@ Phases, in order (any failure raises and the exit code is non-zero):
      and device time from the ``poisson.*`` record_function ranges);
      then a warm pass at psn_dpt_max 8 (256^3, whole-grid extraction) and
      the host time of the depth-10 mesh's largest-component trim
+  8. body, the reference's second mode at bench/body_bench.py's scale:
+     the posed template (arms 15, legs 5 degrees) rendered by K3 into two
+     12-frame 480x640 portrait sequences on a full ring of radius 2.8
+     (the second moved by s 1.12, 9 degrees of yaw, t (0.12, -0.06, 0.1)),
+     with textured views, written in the reference's layout; the scan
+     TSDF-fused at grid 160 through the true similarity, its largest
+     component as Result/Model.obj and Result/SRT.txt = [gt]; then
+     ``cli.main(["deform", ...])`` on the card (cold, warm, and warm with
+     deform_s under torch.profiler) and on the CPU, and ``cli.main(
+     ["render", "--config", ...])``; checks deform.obj's fit RMS to the
+     scan (< 0.06) and vertex count, the card's deform against the CPU's
+     (within 1e-3, the card test's bound), 24 rasters written with K3
+     launched, and a control render of the scan mesh (measured overlap >
+     0.9); logs
+     the synced stage and pass times, the scan's vertex count, deform_s's
+     device-busy share, the template's coverage and overlap; then the
+     config-3 loop at bench/render_bench.py's shape (8 VGA frames of a
+     99,904-face sphere on the 90-degree ring, ``render_stage(...,
+     refine=True)``) in ms per outer iteration, held to the plain render
+     of the same inputs refined on the CPU
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -323,7 +347,8 @@ def phase_kernels(dev):
     from multiviewstitch_tpu_torch.pipeline.fixtures import (make_scene,
                                                              uv_sphere,
                                                              ring_cameras)
-    from multiviewstitch_tpu_torch.core.cameras import CameraBatch
+    from multiviewstitch_tpu_torch.core.cameras import CameraBatch, _rot3
+    from multiviewstitch_tpu_torch.core.transforms import inverse
 
     seqs, _, base, _ = config2_sequences(dev)
     rec = {}
@@ -389,6 +414,14 @@ def phase_kernels(dev):
         arc_deg=90.0, arc_center_deg=CLOSE_UP_ARC_CENTER_DEG, device=dev),
         H, W)
     assert side > 128, f"close-up ring: no giant face (longest side {side})"
+    # phase 8's two shapes: the body drawn through inverse(gt) into the
+    # first sequence's 12 portrait frames, as ``render --config`` draws
+    # deform.obj, and render_bench's config-3 ring
+    (_, tf, _), posed, bcams = body_ring(dev)
+    inv = inverse(body_transform())
+    raster_case("body ring", _rot3(inv.R, torch.as_tensor(posed)) * inv.s
+                + inv.t, tf, bcams, BODY_H, BODY_W)
+    raster_case("config-3 ring", *config3_scene(dev), H, W)
     torch.cuda.synchronize()
     return rec
 
@@ -554,6 +587,21 @@ def phase_cli():
             assert os.path.getsize(os.path.join(wd, "Result", name)) > 0
     log(f"cli align --demo --device cuda: rc 0 in "
         f"{time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as wd:
+        t0 = time.perf_counter()
+        rc = main(["pipeline", "--demo", "--device", "cuda", "--workdir", wd,
+                   "--force"])
+        assert rc == 0, f"cli pipeline returned {rc}"
+        for name in ("SRT.txt", "PSR.npts", "Model.obj", "deform.obj"):
+            assert os.path.getsize(os.path.join(wd, "Result", name)) > 0
+        rdir = os.path.join(wd, "DATA", "Render")
+        raws = sorted(f for f in os.listdir(rdir) if f.endswith(".raw"))
+        assert raws == [f"_depth{i}.raw" for i in range(4)], raws
+        for f in raws:
+            assert os.path.getsize(os.path.join(rdir, f)) == 160 * 120 * 4
+    log(f"cli pipeline --demo --device cuda: rc 0 in "
+        f"{time.perf_counter() - t0:.2f} s (SRT.txt, PSR.npts, Model.obj, "
+        f"deform.obj, {len(raws)} rasters)")
 
 
 # config-2's knobs (cli.demo_config()) as the reference's legacy config.txt;
@@ -709,6 +757,309 @@ def phase_config(dev):
             f"{len(kf)} faces in {time.perf_counter() - t0:.4f} s (host; "
             f"the rest of trim_write_s is writing)")
 
+# phase 8: bench/body_bench.py's body scan (the reference's second mode)
+BODY_W, BODY_H, BODY_FRAMES, BODY_GRID = 480, 640, 12, 160
+BODY_S, BODY_YAW_DEG, BODY_T = 1.12, 9.0, (0.12, -0.06, 0.1)
+# the card test's bound on deform, card vs CPU (tests/test_torch_gpu.py)
+DEFORM_GAP_MAX = 1e-3
+# the config-3 loop (bench/render_bench.py:122-150): outer iterations timed
+LOOP_ITERS = 5
+
+
+def body_transform():
+    from multiviewstitch_tpu_torch.core.transforms import Similarity
+    a = np.radians(BODY_YAW_DEG)
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0],
+                  [-np.sin(a), 0, np.cos(a)]], np.float32)
+    return Similarity(torch.tensor(BODY_S), torch.as_tensor(R),
+                      torch.tensor(BODY_T, dtype=torch.float32))
+
+
+def body_ring(dev):
+    """body_bench's posed template (arms 15, legs 5 degrees) and its full
+    ring of portrait cameras framing it to ~45 % of the frame. Returns
+    (template, posed vertices, cameras)."""
+    from multiviewstitch_tpu_torch.models.template_body import (
+        make_template, pose_template)
+    from multiviewstitch_tpu_torch.pipeline.fixtures import ring_cameras
+    tv, tf, tl = make_template()
+    posed = pose_template(tv, tl, arm_angle_deg=15.0,
+                          leg_spread_deg=5.0).astype(np.float32)
+    center = posed.mean(0)
+    cams = ring_cameras(BODY_FRAMES, radius=2.8, width=BODY_W,
+                        img_height=BODY_H,
+                        length_focal=float(0.25 * BODY_H * 2.8 / 1.8),
+                        look_at=tuple(center.tolist()),
+                        height=float(center[1]), device=dev)
+    return (tv, tf, tl), posed, cams
+
+
+def body_sequences(dev):
+    """body_bench's two sequences of the body ring, the second through
+    body_transform(). Returns (sequences, gt, template, the second scene's
+    body)."""
+    from multiviewstitch_tpu_torch.pipeline.align_seq import Sequence
+    from multiviewstitch_tpu_torch.pipeline.fixtures import (
+        mesh_scene, textured_views)
+    (tv, tf, tl), posed, cams = body_ring(dev)
+    gt = body_transform()
+    scenes = [mesh_scene(posed, tf, cams), mesh_scene(posed, tf, cams, gt)]
+    seqs = [Sequence(textured_views(sc), sc.disparity, sc.cams)
+            for sc in scenes]
+    return seqs, gt, (tv, tf, tl), scenes[1].vertices
+
+
+def write_body_layout(dev, root):
+    """The body sequences in the reference's layout, the fused scan as
+    Result/Model.obj and SRT.txt = [gt] under ``root``/work; returns
+    (config.txt, workdir, sequences, gt, template, body, scan)."""
+    from multiviewstitch_tpu_torch.core.transforms import Similarity
+    from multiviewstitch_tpu_torch.io.meshio import write_obj
+    from multiviewstitch_tpu_torch.io.srt import save_srt
+    from multiviewstitch_tpu_torch.ops.tsdf import fuse_multi_sequence
+    from multiviewstitch_tpu_torch.pipeline.ingest import save_sequence_dir
+    from multiviewstitch_tpu_torch.solvers.unionfind import (
+        retain_largest_component)
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seqs, gt, tmpl, body = body_sequences(dev)
+    torch.cuda.synchronize()
+    t_render = time.perf_counter() - t0
+    assert kernels.launch_counts()["raster"] == 2, kernels.launch_counts()
+    for k, seq in enumerate(seqs):
+        save_sequence_dir(os.path.join(root, f"seq{k}"), seq)
+    with open(os.path.join(root, "imgPathList.txt"), "w") as f:
+        f.write("./seq0/\n./seq1/\n")
+    config = os.path.join(root, "config.txt")
+    with open(config, "w") as f:
+        f.write("ImgPathList ./imgPathList.txt\n")
+    t0 = time.perf_counter()
+    sv, sf, _ = fuse_multi_sequence(
+        [s.disparity for s in seqs], [s.cams for s in seqs],
+        [gt, Similarity.identity(device="cpu")], grid=BODY_GRID,
+        min_dsp=1e-3, max_dsp=10.0)
+    sv, sf, _ = retain_largest_component(sv, sf)
+    torch.cuda.synchronize()
+    t_fuse = time.perf_counter() - t0
+    wd = os.path.join(root, "work")
+    os.makedirs(os.path.join(wd, "Result"))
+    write_obj(os.path.join(wd, "Result", "Model.obj"), sv, None, sf)
+    save_srt(os.path.join(wd, "Result", "SRT.txt"), [gt])
+    cover = [float((s.disparity > 0).float().mean()) for s in seqs]
+    log(f"body: 2 x {BODY_FRAMES} frames at {BODY_W}x{BODY_H} rendered by "
+        f"K3 in {t_render:.4f} s (coverage {cover[0]:.4f} / {cover[1]:.4f});"
+        f" scan fused at grid {BODY_GRID}: {len(sv)} vertices / {len(sf)} "
+        f"faces in its largest component ({t_fuse:.4f} s), vertex RMSE to "
+        f"the body {rmse_to(sv, body, dev):.5f}")
+    return config, wd, seqs, gt, tmpl, body, (sv, sf)
+
+
+def deform_run(dev, wd, profiled=False):
+    """``cli deform`` on ``wd``; returns (stage seconds, deform_s's
+    torch.profiler profile or None, vertices)."""
+    from torch.profiler import ProfilerActivity, profile
+    from multiviewstitch_tpu_torch.cli import main
+    from multiviewstitch_tpu_torch.io.meshio import read_obj
+    t, profs = {}, []
+    timed = synced_timer(t)
+
+    def stage(name, fn):
+        if not (profiled and name == "deform_s"):
+            return timed(name, fn)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = timed(name, fn)
+        profs.append(prof)
+        return out
+    rc = main(["deform", "--workdir", wd, "--device", str(dev)], stage=stage)
+    assert rc == 0, f"cli deform --device {dev} returned {rc}"
+    v, n, f = read_obj(os.path.join(wd, "Result", "deform.obj"))
+    assert len(n) == len(v) and np.isfinite(v).all()
+    return t, (profs[0] if profs else None), v
+
+
+def log_deform_steps(dev, verts, faces, sv, sf):
+    """CUDA-event times of a deform pass's two device steps at the body's
+    shapes: the [C,T] correspondence search of the template's controls in
+    the scan, and the 5-iteration ARAP solve (dense Cholesky path); and
+    the synced wall time of the rigid alignment's ground removal."""
+    from multiviewstitch_tpu_torch.ops.mesh_normals import vertex_normals
+    from multiviewstitch_tpu_torch.solvers import deformation as D
+    from multiviewstitch_tpu_torch.solvers.alignment import remove_ground
+    from multiviewstitch_tpu_torch.solvers.unionfind import (
+        retain_largest_component)
+    sidx = D.uniform_sampling(verts)
+    edges = D.mesh_edges(faces)
+    w = D.cotangent_weights(verts, faces, edges)
+    vt = torch.as_tensor(verts, device=dev)
+    ft = torch.as_tensor(faces.astype(np.int64), device=dev)
+    st = torch.as_tensor(sv, device=dev)
+    sn = vertex_normals(st, torch.as_tensor(sf.astype(np.int64), device=dev))
+    si = torch.as_tensor(sidx, device=dev)
+    controls, cn = vt[si], vertex_normals(vt, ft)[si]
+    corr = D.find_correspondences(controls, cn, st, sn)
+    targets = vt.clone()
+    targets[si] = corr.targets
+    con = torch.zeros(len(verts), dtype=torch.bool, device=dev)
+    con[si] = True
+    prob = D.ARAPProblem(vt, torch.as_tensor(edges.astype(np.int64),
+                                             device=dev),
+                         torch.as_tensor(w, device=dev), con, targets)
+    ms_c = time_ms(lambda: D.find_correspondences(controls, cn, st, sn),
+                   reps=10)
+    ms_a = time_ms(lambda: D.arap_solve(prob), reps=10)
+    log(f"body deform steps (CUDA events, median of 10): "
+        f"find_correspondences {len(sidx)} controls x {len(sv)} scan "
+        f"points {ms_c:.3f} ms, arap_solve ({len(verts)} vertices, "
+        f"{len(edges)} edges, dense, 5 outer iterations) {ms_a:.3f} ms; "
+        f"{int(corr.valid.sum())} controls accepted")
+    # the rigid alignment's first step, and the host pass inside it
+    t = {}
+    timed = synced_timer(t)
+    g = timed("remove_ground_s", lambda: remove_ground(sv, None, sf,
+                                                       device=dev))
+    timed("largest_component_s", lambda: retain_largest_component(sv, sf))
+    log(f"body rigid alignment steps (synced): remove_ground "
+        f"{t['remove_ground_s']:.4f} s ({len(sv)} -> {len(g.points)} "
+        f"vertices), the host largest-component pass over the whole scan "
+        f"{t['largest_component_s']:.4f} s")
+
+
+def phase_body(dev):
+    """The reference's second mode on the body scan: deform and render on
+    the card, deform on the CPU, the control render and the config-3
+    loop."""
+    import shutil
+    from multiviewstitch_tpu_torch.cli import main
+    from multiviewstitch_tpu_torch.core.transforms import Similarity
+    from multiviewstitch_tpu_torch.pipeline.deform_render import render_stage
+    with tempfile.TemporaryDirectory() as root:
+        config, wd, seqs, gt, (tv, tf, _), body, (sv, sf) = \
+            write_body_layout(dev, root)
+        runs = [deform_run(dev, wd) for _ in range(2)]
+        t_p, prof, v = deform_run(dev, wd, profiled=True)
+        for name, (t, _, v_run) in zip(("cold", "warm"), runs):
+            log(f"body deform ({name}, synced): " + ", ".join(
+                f"{k} {x:.4f}" for k, x in t.items()) +
+                f"; max abs to the profiled run's "
+                f"{np.abs(v_run - v).max():.3g}")
+        fit, to_body = rmse_to(v, sv, dev), rmse_to(v, body, dev)
+        busy, n_ev = device_busy_us(prof)
+        log(f"body deform (warm, deform_s profiled): deform_s "
+            f"{t_p['deform_s']:.4f} s, device busy {busy / 1e6:.4f} s "
+            f"({100 * busy / 1e6 / t_p['deform_s']:.1f} %), {n_ev} device "
+            f"events; deform.obj {len(v)} vertices, fit RMS to the scan "
+            f"{fit:.5f}, RMS to the posed, moved body {to_body:.5f}")
+        log("    top device events: " + top_device_events(prof))
+        assert len(v) == len(tv), (len(v), len(tv))
+        assert fit < 0.06, f"body deform: fit RMS to the scan {fit}"
+        log_deform_steps(dev, v, tf, sv, sf)
+
+        wd_cpu = os.path.join(root, "work_cpu")
+        shutil.copytree(os.path.join(wd, "Result"),
+                        os.path.join(wd_cpu, "Result"))
+        t_cpu, _, v_cpu = deform_run(torch.device("cpu"), wd_cpu)
+        gap = np.abs(v - v_cpu)
+        log(f"body deform on the CPU: deform_s {t_cpu['deform_s']:.4f} s; "
+            f"card vs CPU max abs {gap.max():.3g}, mean {gap.mean():.3g} "
+            f"(bound {DEFORM_GAP_MAX})")
+        assert gap.max() <= DEFORM_GAP_MAX, "body deform: card vs CPU"
+
+        kernels.reset_launch_counts()
+        t = {}
+        rc = main(["render", "--config", config, "--workdir", wd,
+                   "--device", str(dev)], stage=synced_timer(t))
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        assert rc == 0, f"cli render --config returned {rc}"
+        assert launches["raster"] == 2, launches
+        raws = [os.path.join(root, f"seq{k}", "DATA", "Render",
+                             f"_depth{i}.raw")
+                for k in range(2) for i in range(BODY_FRAMES)]
+        for r in raws:
+            assert os.path.getsize(r) == BODY_W * BODY_H * 4, r
+        log(f"body render --config: render_s {t['render_s']:.4f} s "
+            f"(synced), {len(raws)} rasters, launches {launches}")
+
+        ident = Similarity.identity(device="cpu")
+        meas = [s.disparity for s in seqs]
+        cams = [s.cams for s in seqs]
+        for name, (mv, mf) in (("template (deform.obj)", (v, tf)),
+                               ("scan mesh (control)", (sv, sf))):
+            m = {}
+            render_stage(torch.as_tensor(mv, device=dev),
+                         torch.as_tensor(mf.astype(np.int64), device=dev),
+                         [gt, ident], cams, measured_disparity=meas,
+                         metrics=m)
+            log(f"body render of the {name}: coverage "
+                f"{m['render_coverage']:.4f}, measured overlap "
+                f"{m['measured_overlap']:.4f}")
+        assert m["measured_overlap"] > 0.9, m
+    phase_config3_loop(dev)
+
+
+def config3_scene(dev):
+    """render_bench's config-3 shape: the 224x224 bumpless sphere of radius
+    0.8 at z 2.5 and 8 VGA cameras on a 90-degree ring looking at it.
+    Returns (vertices, faces, cameras) on ``dev``."""
+    from multiviewstitch_tpu_torch.pipeline.fixtures import (ring_cameras,
+                                                             uv_sphere)
+    v, f = uv_sphere(224, 224, radius=0.8)
+    v[:, 2] += 2.5
+    cams = ring_cameras(8, radius=2.5, width=W, img_height=H,
+                        length_focal=520.0, arc_deg=90.0,
+                        look_at=(0.0, 0.0, 2.5), device=dev)
+    return (torch.as_tensor(v, device=dev),
+            torch.as_tensor(f.astype(np.int64), device=dev), cams)
+
+
+def phase_config3_loop(dev):
+    """bench/render_bench.py's config-3 loop: one outer iteration renders
+    the 99,904-face sphere into 8 VGA frames and refines 8 measured maps
+    (100 CG iterations) through render_stage(..., refine=True); held
+    against the plain render of the same inputs refined on the CPU."""
+    from multiviewstitch_tpu_torch.core.transforms import Similarity
+    from multiviewstitch_tpu_torch.ops.depth_refine import refine_depth
+    from multiviewstitch_tpu_torch.pipeline.deform_render import render_stage
+    vt, ft, cams = config3_scene(dev)
+    meas = torch.as_tensor(np.random.default_rng(0).uniform(
+        0.3, 0.5, size=(8, H, W)).astype(np.float32), device=dev)
+    ident = Similarity.identity(device="cpu")
+
+    def outer():
+        return render_stage(vt, ft, [ident], [cams],
+                            measured_disparity=[meas], refine=True)[0]
+    outer()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    ts = []
+    for _ in range(LOOP_ITERS):
+        t0 = time.perf_counter()
+        out = outer()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    launches = kernels.launch_counts()["raster"]
+    assert launches == LOOP_ITERS, launches
+    assert torch.isfinite(out).all() and (out > 0).all()
+    uvz, fi, ok = tr.project_vertices(
+        vt, ft, torch.ones(len(ft), dtype=torch.bool, device=dev), cams)
+    plain = tr.raster_reference(uvz, fi, ok, height=H, width=W)
+    ms_ref = time_ms(lambda: refine_depth(meas, plain), reps=5)
+    got = out.cpu()
+    want = refine_depth(meas.cpu(), plain.cpu())
+    err = float((got - want).abs().max() / (want.max() - want.min()))
+    log(f"config-3 loop (8 x {W}x{H}, {len(ft)} faces, refine 100 CG "
+        f"iterations): {1e3 * statistics.median(ts):.3f} ms per outer "
+        f"iteration (median of {LOOP_ITERS}, synced; all "
+        + ", ".join(f"{1e3 * x:.3f}" for x in ts) +
+        f"), refine_depth alone {ms_ref:.3f} ms (CUDA events), K3 launches "
+        f"{launches / LOOP_ITERS:.0f} per iteration; the card's outer "
+        f"iteration vs the plain render refined on the CPU {err:.3g} of the "
+        f"range")
+    assert err <= 1e-4, f"config-3 loop, card vs CPU: {err}"
+
 
 def main():
     name, smi_line = phase_device()
@@ -719,6 +1070,7 @@ def main():
     phase_cli()
     phase_profile(dev)
     phase_config(dev)
+    phase_body(dev)
     out = []
     for k in kernels.KERNELS:
         src, replaces = SOURCES[k]

@@ -6,7 +6,9 @@ rendered with the port's rasterizer, per-sequence prep (foreground mask,
 view synthesis, SIFT, unprojection), the batched edge sweep, the SRT solve
 and greedy chain, fusion (consistency check, oriented point sampling),
 per-frame meshes, TSDF or screened Poisson reconstruction and the
-AllSeqProj trim. The JAX package beside it is the reference the port is
+AllSeqProj trim; and the reference's second mode: ``deform`` (rigid
+template alignment, ARAP fit) and ``render`` (the deformed model drawn
+into every frame, optional depth refinement). The JAX package beside it is the reference the port is
 tested against; this package imports ``torch`` and never ``jax``.
 
 Package layout (mirrors multiviewstitch_tpu, of which it imports nothing):
@@ -14,15 +16,20 @@ Package layout (mirrors multiviewstitch_tpu, of which it imports nothing):
   core/      cameras (and the .act format), similarity transforms
   ops/       rasterizer (K3), consistency (K1), point_sampling (K2: the
              whole oriented point sampler), view_synth, features, match,
-             filters, tsdf, poisson, meshing, segmentation
-  solvers/   srt (Kabsch + RANSAC), unionfind
-  pipeline/  fixtures, ingest, executor, match_edges, align_seq
+             filters, tsdf, poisson, meshing, segmentation, mesh_normals,
+             depth_refine
+  solvers/   srt (Kabsch + RANSAC), unionfind, pca, alignment (rigid
+             template fit), deformation (ARAP)
+  models/    template_body (its own copy), parts (16-part labels, 1-NN)
+  pipeline/  fixtures, ingest, executor, match_edges, align_seq,
+             deform_render
   io/        srt (SRT.txt), meshio (OBJ, NPTS), manifest, rawdepth (its
              own copies)
   csrc/      CUDA C++ sources of K1-K3 (sm_90a)
   kernels/   nvcc build + ctypes wrappers + launch counts
-  cli.py     ``align`` entry point
-  interop.py numpy -> torch converters for cameras, similarities, sequences
+  cli.py     ``align``, ``deform``, ``render`` and ``pipeline`` entry points
+  interop.py numpy -> torch converters for cameras, similarities,
+             sequences and meshes
 """
 
 __version__ = "0.1.0"

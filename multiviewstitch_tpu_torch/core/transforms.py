@@ -76,6 +76,34 @@ def rotation_about_axis(axis, angle):
     ], dim=-2)
 
 
+def rotation_between(a, b, eps: float = 1e-12):
+    """Rotation matrix taking direction a [...,3] to direction b (the
+    reference's CalcRotation, Common/Utils.h:140-149: axis = a x b, angle
+    from the dot product). Identity for parallel vectors, a half turn about
+    a perpendicular axis for antiparallel ones."""
+    a = a / torch.linalg.norm(a, dim=-1, keepdim=True).clamp_min(eps)
+    b = b / torch.linalg.norm(b, dim=-1, keepdim=True).clamp_min(eps)
+    axis = torch.linalg.cross(a, b, dim=-1)
+    s = torch.linalg.norm(axis, dim=-1)
+    c = (a * b).sum(-1)
+    angle = torch.atan2(s, c)
+    ex = a.new_tensor([1.0, 0.0, 0.0])
+    ey = a.new_tensor([0.0, 1.0, 0.0])
+    safe_axis = torch.where(s[..., None] > eps,
+                            axis / s[..., None].clamp_min(eps), ex)
+    R = rotation_about_axis(safe_axis, angle)
+    perp = torch.linalg.cross(a, ex.expand_as(a), dim=-1)
+    perp2 = torch.linalg.cross(a, ey.expand_as(a), dim=-1)
+    perp = torch.where(torch.linalg.norm(perp, dim=-1, keepdim=True) > 1e-6,
+                       perp, perp2)
+    perp = perp / torch.linalg.norm(perp, dim=-1, keepdim=True).clamp_min(eps)
+    R_pi = rotation_about_axis(perp, torch.full_like(s, math.pi))
+    anti = (s <= eps) & (c < 0)
+    eye = torch.eye(3, dtype=a.dtype, device=a.device).expand_as(R)
+    return torch.where(anti[..., None, None], R_pi,
+                       torch.where((s <= eps)[..., None, None], eye, R))
+
+
 def rotation_angle_deg(Ra, Rb) -> float:
     """Angle of the relative rotation Ra @ Rb^T in degrees (host floats)."""
     dR = np.array(Ra, np.float64) @ np.array(Rb, np.float64).T

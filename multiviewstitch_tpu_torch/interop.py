@@ -1,7 +1,7 @@
 """numpy -> torch converters for the state the align path carries.
 
-The path has no learned weights: its state is cameras, similarities and
-sequences. Callers holding arrays from elsewhere (for example the JAX
+The port has no learned weights: its state is cameras, similarities,
+sequences and, in mode 2, meshes with part labels. Callers holding arrays from elsewhere (for example the JAX
 package's objects, after ``np.asarray``) hand them over as numpy, so the
 port never sees a foreign array type.
 """
@@ -14,6 +14,7 @@ import torch
 from .core.cameras import CameraBatch
 from .core.transforms import Similarity
 from .pipeline.align_seq import Sequence
+from .pipeline.deform_render import Mesh
 
 
 def _f32(a, device):
@@ -38,3 +39,12 @@ def sequence_from_numpy(gray, disparity, K, R, t, width: int, height: int,
     ``device``."""
     return Sequence(_f32(gray, device), _f32(disparity, device),
                     cameras_from_numpy(K, R, t, width, height, device))
+
+
+def mesh_from_numpy(verts, faces, labels=None, *, device) -> Mesh:
+    """verts [V,3], faces [F,3] and optional part labels [V] -> Mesh on
+    ``device`` (float32 vertices, int64 faces, int32 labels)."""
+    return Mesh(_f32(verts, device),
+                torch.as_tensor(np.array(faces, np.int64), device=device),
+                None if labels is None else
+                torch.as_tensor(np.array(labels, np.int32), device=device))

@@ -107,6 +107,16 @@ def make_scene(n_frames: int = 4, width: int = 160, height: int = 120,
     cams = ring_cameras(n_frames, radius=cam_radius, width=width,
                         img_height=height, arc_deg=arc_deg,
                         arc_center_deg=arc_center_deg, device=device)
+    return mesh_scene(verts, faces, cams, transform)
+
+
+def mesh_scene(verts, faces, cams: CameraBatch,
+               transform: Optional[Similarity] = None) -> Scene:
+    """Render the mesh (numpy verts [V,3], faces [F,3]) into every camera of
+    ``cams``, on the cameras' device; with ``transform`` the mesh and the
+    cameras are first mapped through it, as in ``make_scene``."""
+    device = cams.K.device
+    height, width = cams.height, cams.width
     if transform is not None:
         s = np.float64(transform.s.cpu().numpy())
         Rt = transform.R.cpu().numpy().astype(np.float64)

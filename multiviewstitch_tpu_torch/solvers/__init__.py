@@ -1,1 +1,2 @@
-"""SRT estimation (Kabsch + RANSAC) and the largest-component trim."""
+"""SRT estimation (Kabsch + RANSAC), the largest-component trim, point-set
+PCA, rigid template alignment and ARAP deformation."""

@@ -199,21 +199,42 @@ def test_cli_runs_the_paths_ported_since(tmp_path, extra, capsys):
         else not models.exists()
 
 
+@pytest.mark.parametrize("cmd", ["align", "pipeline"])
 @pytest.mark.parametrize("extra", [
     ["--refine"], ["--refine", "ba"], ["--debug-artifacts"]])
-def test_cli_refuses_paths_not_ported(tmp_path, extra, capsys):
+def test_cli_refuses_paths_not_ported(tmp_path, extra, capsys, cmd):
     from multiviewstitch_tpu_torch.cli import main
-    args = ["align", "--device", "cpu", "--workdir", str(tmp_path), "--demo"]
+    args = [cmd, "--device", "cpu", "--workdir", str(tmp_path), "--demo"]
     assert main(args + extra) == 2
     assert "not ported" in capsys.readouterr().out
     assert not (tmp_path / "Result" / "SRT.txt").exists()
+    assert not (tmp_path / "Result" / "deform.obj").exists()
 
 
-@pytest.mark.parametrize("cmd", ["deform", "render", "pipeline", "bench"])
+@pytest.mark.parametrize("cmd", ["bench"])
 def test_cli_refuses_other_commands(cmd, capsys):
     from multiviewstitch_tpu_torch.cli import main
     assert main([cmd, "--demo"]) == 2
     assert "not ported" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("cmd", ["deform", "render", "pipeline"])
+def test_cli_runs_the_mode_two_commands(tmp_path, cmd, capsys):
+    """The commands the CLI used to refuse: deform --demo, render on its
+    deform.obj, and the whole pipeline --demo."""
+    from multiviewstitch_tpu_torch.cli import main
+    args = ["--device", "cpu", "--workdir", str(tmp_path)]
+    if cmd == "render":
+        assert main(["deform", "--demo", "--passes", "1"] + args) == 0
+    extra = {"deform": ["--demo", "--passes", "1"], "render": [],
+             "pipeline": ["--demo", "--grid", "32", "--passes", "1"]}[cmd]
+    assert main([cmd] + extra + args) == 0
+    assert "not ported" not in capsys.readouterr().out
+    assert (tmp_path / "Result" / "deform.obj").stat().st_size > 0
+    assert (tmp_path / "Result" / "SRT.txt").exists() == (cmd == "pipeline")
+    raws = tmp_path / "DATA" / "Render"
+    assert (len(os.listdir(raws)) == 8) if cmd != "deform" \
+        else not raws.exists()
 
 
 def test_cli_cuda_without_gpu_raises(tmp_path):

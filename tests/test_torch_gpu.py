@@ -426,3 +426,173 @@ def test_grid_mesh_cuda_matches_cpu(cuda, edge):
     assert torch.equal(gm.tex_index.cpu(), cm.tex_index)
     torch.testing.assert_close(gm.vertices.cpu(), cm.vertices, atol=1e-6,
                                rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# mode 2 (deform, render, depth refine) on the card against its CPU path
+# ---------------------------------------------------------------------------
+
+def _demo_meshes(dev):
+    from multiviewstitch_tpu_torch.cli import demo_scan
+    from multiviewstitch_tpu_torch.interop import mesh_from_numpy
+    from multiviewstitch_tpu_torch.models.template_body import make_template
+    tv, tf, tl = make_template()
+    sv, sf = demo_scan()
+    return (mesh_from_numpy(tv, tf, tl, device=dev),
+            mesh_from_numpy(sv, sf, device=dev))
+
+
+def test_deform_stage_cuda_matches_cpu(cuda):
+    """Tolerance 1e-3 max abs (the bound the CPU tests hold the port to
+    JAX with one set of discrete choices): the rigid alignment's sums run
+    in float64 on the card, and the fit orders near-ties by index, so the
+    card and the CPU pick the same controls."""
+    from multiviewstitch_tpu_torch.cli import VIEW_RAY
+    from multiviewstitch_tpu_torch.pipeline.deform_render import deform_stage
+    got = deform_stage(*_demo_meshes(cuda), VIEW_RAY, deform_passes=2)
+    want = deform_stage(*_demo_meshes("cpu"), VIEW_RAY, deform_passes=2)
+    assert got.vertices.device.type == "cuda"
+    gap = (got.vertices.cpu() - want.vertices).abs().max().item()
+    print(f"deform_stage cuda vs cpu: max abs {gap:.3g}")
+    assert gap <= 1e-3
+
+
+def test_rigid_alignment_cuda_matches_cpu(cuda):
+    """The alignment's numeric cores on the card: the part labels and the
+    control set equal, the aligned template within 1e-6."""
+    from multiviewstitch_tpu_torch.cli import VIEW_RAY, demo_scan
+    from multiviewstitch_tpu_torch.models.template_body import make_template
+    from multiviewstitch_tpu_torch.solvers.alignment import align
+    from multiviewstitch_tpu_torch.solvers.deformation import (
+        fit_normals, uniform_sampling)
+    tv, tf, tl = make_template()
+    sv, sf = demo_scan()
+    f = torch.as_tensor(tf, dtype=torch.int64)
+    tn = fit_normals(torch.as_tensor(tv), f).numpy()
+    sn = fit_normals(torch.as_tensor(sv), f).numpy()
+    got, want = (align(tv, tn, tl, sv, sn, sf, VIEW_RAY, device=d)
+                 for d in (cuda, "cpu"))
+    gap = np.abs(got.src - want.src).max()
+    print(f"rigid alignment cuda vs cpu: max abs {gap:.3g}")
+    assert np.array_equal(got.t_labels, want.t_labels)
+    assert gap <= 1e-6
+    assert np.array_equal(uniform_sampling(got.src.astype(np.float32)),
+                          uniform_sampling(want.src.astype(np.float32)))
+
+
+def test_find_correspondences_and_fit_rotation_cuda_match_cpu(cuda):
+    """Tolerance: accept masks equal, targets and rotations within 1e-5."""
+    from multiviewstitch_tpu_torch.solvers import deformation as TD
+    g = torch.Generator().manual_seed(0)
+    scan = torch.randn(3000, 3, generator=g)
+    scan = scan / scan.norm(dim=1, keepdim=True)
+    snrm = scan * torch.where(torch.rand(3000, 1, generator=g) < 0.1, -1, 1)
+    c = torch.randn(200, 3, generator=g)
+    c = 0.95 * c / c.norm(dim=1, keepdim=True)
+    cn = c + 0.2 * torch.randn(200, 3, generator=g)
+    want = TD.find_correspondences(c, cn, scan, snrm, proj_len_err=0.2,
+                                   proj_dist_err=0.1)
+    got = TD.find_correspondences(c.to(cuda), cn.to(cuda), scan.to(cuda),
+                                  snrm.to(cuda), proj_len_err=0.2,
+                                  proj_dist_err=0.1)
+    assert torch.equal(got.valid.cpu(), want.valid)
+    assert 0 < int(want.valid.sum()) < 200
+    torch.testing.assert_close(got.targets.cpu(), want.targets, atol=1e-5,
+                               rtol=0)
+    S = torch.randn(4096, 3, 3, generator=g)
+    S[:16, :, 2] = 0.0                               # rank 2
+    torch.testing.assert_close(TD.fit_rotation(S.to(cuda)).cpu(),
+                               TD.fit_rotation(S), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dense", [True, False])
+def test_arap_solve_cuda_matches_cpu(cuda, dense):
+    """Tolerance 1e-4 (cuSOLVER's Cholesky and the atomic scatters sum in
+    another order)."""
+    from multiviewstitch_tpu_torch.solvers import deformation as TD
+    v, f = uv_sphere(20, 28, radius=1.0)
+    edges = TD.mesh_edges(f)
+    w = TD.cotangent_weights(v, f, edges)
+    sidx = TD.uniform_sampling(v)
+    con = np.zeros(len(v), bool)
+    con[sidx] = True
+    tgt = v.copy()
+    tgt[sidx] += 0.03 * np.random.default_rng(3).normal(
+        size=(len(sidx), 3)).astype(np.float32)
+
+    def prob(dev):
+        return TD.ARAPProblem(
+            torch.as_tensor(v, device=dev),
+            torch.as_tensor(edges.astype(np.int64), device=dev),
+            torch.as_tensor(w, device=dev), torch.as_tensor(con, device=dev),
+            torch.as_tensor(tgt, device=dev))
+    got = TD.arap_solve(prob(cuda), outer_iters=3, dense=dense).cpu()
+    want = TD.arap_solve(prob("cpu"), outer_iters=3, dense=dense)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def test_pivots_cuda_has_the_cpu_signs(cuda):
+    from multiviewstitch_tpu_torch.solvers.pca import pivots
+    g = torch.Generator().manual_seed(1)
+    for _ in range(8):
+        q, _ = torch.linalg.qr(torch.randn(3, 3, generator=g))
+        p = (torch.randn(2000, 3, generator=g) * torch.tensor(
+            [2.0, 1.0, 0.3])) @ q.T + torch.randn(3, generator=g)
+        gv, gw, gc = pivots(p.to(cuda))
+        cv, cw, cc = pivots(p)
+        assert gv.device.type == "cuda"
+        assert torch.equal(torch.sign(gv.cpu()), torch.sign(cv))
+        torch.testing.assert_close(gv.cpu(), cv, atol=1e-5, rtol=0)
+
+
+def test_refine_depth_cuda_matches_cpu_without_host_sync(cuda):
+    """Tolerance 1e-4 of the data range (the CG's dot products sum in
+    another order); no host read in the 100 iterations."""
+    import warnings
+    from multiviewstitch_tpu_torch.ops.depth_refine import refine_depth
+    sc = make_scene(n_frames=4, width=160, height=120, bumps=0.15, n_lat=64,
+                    n_lon=96, arc_deg=60.0, device=cuda)
+    model = sc.disparity
+    meas = _noisy(sc, cuda)
+    meas[:, 40:60, 60:90] = 0.0
+    refine_depth(meas, model, iters=3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = refine_depth(meas, model)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(c.message) for c in caught if "synchroniz" in str(c.message)]
+    assert syncs == []
+    want = refine_depth(meas.cpu(), model.cpu())
+    span = float(want.max() - want.min())
+    assert (got.cpu() - want).abs().max().item() <= 1e-4 * span
+
+
+def test_render_stage_cuda_matches_cpu_bit_for_bit(cuda, tmp_path):
+    """K3 against its plain version through the whole render stage: the
+    vertex map and the projection are elementwise, so the card and the CPU
+    rasterise the same numbers."""
+    from multiviewstitch_tpu_torch.core.transforms import Similarity
+    from multiviewstitch_tpu_torch.pipeline.deform_render import render_stage
+    tmpl, _ = _demo_meshes("cpu")
+    c = tmpl.vertices.mean(0)
+    cams = ring_cameras(6, radius=2.6, width=240, img_height=320,
+                        length_focal=300.0, look_at=tuple(c.tolist()),
+                        height=float(c[1]), device="cpu")
+    yaw = np.radians(9.0)
+    T = Similarity(torch.tensor(1.12), torch.tensor(
+        [[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0],
+         [-np.sin(yaw), 0, np.cos(yaw)]], dtype=torch.float32),
+        torch.tensor([0.12, -0.06, 0.1]))
+    before = kernels.launch_counts()["raster"]
+    got = render_stage(tmpl.vertices.to(cuda), tmpl.faces.to(cuda), [T],
+                       [cams.to(cuda)], out_dirs=[str(tmp_path)])[0]
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["raster"] == before + 1
+    want = render_stage(tmpl.vertices, tmpl.faces, [T], [cams])[0]
+    assert (want > 0).float().mean() > 0.02
+    assert torch.equal(got.cpu(), want)
+    assert len(list((tmp_path / "DATA" / "Render").glob("*.raw"))) == 6

@@ -23,6 +23,10 @@ for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     names.append(m.name)
 assert "multiviewstitch_tpu_torch.cli" in names, names
 assert "multiviewstitch_tpu_torch.kernels" in names, names
+for mod in ("ops.mesh_normals", "ops.depth_refine", "solvers.pca",
+            "solvers.alignment", "solvers.deformation", "models.parts",
+            "models.template_body", "pipeline.deform_render"):
+    assert "multiviewstitch_tpu_torch." + mod in names, mod
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax."))
 ref = sorted(k for k in sys.modules if k == "multiviewstitch_tpu" or
              k.startswith("multiviewstitch_tpu."))
