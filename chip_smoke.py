@@ -30,10 +30,20 @@ Phases, in order (any failure raises and the exit code is non-zero):
      recovered similarity, the fused cloud's RMSE and that every kernel
      launched during the run; then once more with the second sequence's
      camera arc centred half a frame step away, so that no keyframe pair
-     shares a pose and RANSAC has to reject outliers
-  5. the CLI: ``align --demo --device cuda``, then ``pipeline --demo
-     --device cuda`` (align, deform, render; checks SRT.txt, PSR.npts,
-     Model.obj, deform.obj and the four DATA/Render rasters)
+     shares a pose and RANSAC has to reject outliers; then five more runs,
+     each with the launch counts zeroed before it and K1-K3 required after
+     it: config-2 under ``fixtures.sensor_noise`` at 1x and at 2x (seed k
+     for sequence k) held to the JAX noise test's limits (s 8 %, 5 deg,
+     0.15), the turned arc refined by the pose graph and by bundle
+     adjustment (``run_align(..., refine=...)``, hard limits, BA RMSE not
+     above its start) and the noisy 1x run refined by BA; logs refine_s,
+     the refinement metrics and the TSDF mesh's vertex count beside the
+     JAX package's 65,536 cap
+  5. the CLI: ``align --demo --device cuda``, ``align --demo --refine ba
+     --debug-artifacts --device cuda`` (checks the Match/*.png dump and
+     that K1 and K2 launched), then ``pipeline --demo --device cuda``
+     (align, deform, render; checks SRT.txt, PSR.npts, Model.obj,
+     deform.obj and the four DATA/Render rasters)
   6. profile: each stage of the warm slice under torch.profiler; device
      busy time is the union of the device-side events' intervals
   7. config: the config-2 scene (rendered by K3) written in the
@@ -49,16 +59,23 @@ Phases, in order (any failure raises and the exit code is non-zero):
      the grid and the mesh sizes; the depth-10 run's Poisson stage runs
      under torch.profiler (device busy share, and each step's host span
      and device time from the ``poisson.*`` record_function ranges);
-     then a warm pass at psn_dpt_max 8 (256^3, whole-grid extraction) and
-     the host time of the depth-10 mesh's largest-component trim
+     then a warm pass at psn_dpt_max 8 (256^3, whole-grid extraction);
+     Model.obj's vertex count must equal the exact largest component
+     (scipy's connected_components, counted here) of the depth-10 mesh,
+     and the host time of the largest-component pass is logged
   8. body, the reference's second mode at bench/body_bench.py's scale:
      the posed template (arms 15, legs 5 degrees) rendered by K3 into two
      12-frame 480x640 portrait sequences on a full ring of radius 2.8
      (the second moved by s 1.12, 9 degrees of yaw, t (0.12, -0.06, 0.1)),
-     with textured views, written in the reference's layout; the scan
-     TSDF-fused at grid 160 through the true similarity, its largest
-     component as Result/Model.obj and Result/SRT.txt = [gt]; then
-     ``cli.main(["deform", ...])`` on the card (cold, warm, and warm with
+     with textured views, written in the reference's layout with
+     config-2's knobs (body_bench's config); ``cli.main(["align",
+     "--config", ..., "--refine", "ba", "--grid", "160", "--set",
+     "max_keypoints=512", "--device", "cuda", "--force"])`` aligns the two
+     sequences by bundle adjustment (held to the hard limits against the
+     true similarity, K1 and K2 launched) and writes the TSDF scan as
+     Result/Model.obj; the scan fused through the true similarity is
+     logged as a control; then ``cli.main(["deform", ...])`` fits that
+     run's Model.obj on the card (cold, warm, and warm with
      deform_s under torch.profiler) and on the CPU, and ``cli.main(
      ["render", "--config", ...])``; checks deform.obj's fit RMS to the
      scan (< 0.06) and vertex count, the card's deform against the CPU's
@@ -71,6 +88,13 @@ Phases, in order (any failure raises and the exit code is non-zero):
      99,904-face sphere on the 90-degree ring, ``render_stage(...,
      refine=True)``) in ms per outer iteration, held to the plain render
      of the same inputs refined on the CPU
+  9. bundle adjustment at a realistic size: 64 cameras x 16,384 points,
+     every camera seeing every point (1,048,576 observations), built as
+     bench/solvers.py's synth_ba builds it (0.5 px noise, a perturbed
+     start; cameras 0 and 63 fixed); 20 LM iterations of ``solve_ba`` on
+     the card (final RMSE < 1.0 px), held against the CPU after 5
+     iterations (state within 1e-3); logs ms per LM iteration (CUDA
+     events, median), the peak device memory and the device-busy share
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -434,38 +458,78 @@ def rmse_to(points, verts, dev):
     return float(d2.mean().sqrt())
 
 
-def synced_timer(t):
+def synced_timer(t, outs=None):
     """A ``run_align`` stage hook that stores each stage's synced wall
-    seconds in ``t``."""
+    seconds in ``t`` (and, with ``outs``, its output)."""
     def stage(name, fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         t[name] = time.perf_counter() - t0
+        if outs is not None:
+            outs[name] = out
         return out
     return stage
 
 
-def run_slice(dev, workdir, arc_center_deg=0.0, stage=None):
-    """The config-2 align slice through the port's entry points; returns
-    (stage seconds, gt, result, points, normals, moved scene, mesh)."""
+def noisy(seqs, level):
+    """The sequences under fixtures.sensor_noise at ``level`` (seed k for
+    sequence k, as the JAX noise test draws), on their device."""
+    from multiviewstitch_tpu_torch.pipeline.align_seq import Sequence
+    from multiviewstitch_tpu_torch.pipeline.fixtures import sensor_noise
+    out = []
+    for k, s in enumerate(seqs):
+        g, d = sensor_noise(s.gray.cpu().numpy(), s.disparity.cpu().numpy(),
+                            level, seed=k)
+        dev = s.gray.device
+        out.append(Sequence(torch.as_tensor(g, device=dev),
+                            torch.as_tensor(d, device=dev), s.cams))
+    return out
+
+
+def run_slice(dev, workdir, arc_center_deg=0.0, stage=None, noise=0.0,
+              refine=False, outs=None):
+    """The config-2 align slice through the port's entry points (under
+    sensor noise at ``noise``, refined by ``refine``); returns (stage
+    seconds, gt, result, points, normals, moved scene, mesh)."""
     t = {}
-    stage = stage or synced_timer(t)
+    stage = stage or synced_timer(t, outs)
     seqs, gt, _, moved = stage("render_s",
                                lambda: config2_sequences(dev,
                                                          arc_center_deg))
-    res, pts, nrm, v, f = run_align(seqs, CFG, GRID, workdir, stage)
+    if noise:
+        seqs = noisy(seqs, noise)
+    res, pts, nrm, v, f = run_align(seqs, CFG, GRID, workdir, stage,
+                                    refine=refine)
     t["total_s"] = sum(t.values())
     return t, gt, res, pts, nrm, moved, (v, f)
 
 
-def check_slice(name, dev, gt, res, pts, nrm, moved, mesh):
+# the similarity limits: test_e2e_align's, and the JAX noise test's
+# (tests/test_noise_robustness.py:31-42) for noisy input
+HARD = (0.05, 3.0, 0.08)
+NOISE = (0.08, 5.0, 0.15)
+
+
+def similarity_errors(T, gt, gt_s):
+    """(relative scale error, rotation error in degrees, translation
+    error) of T against gt."""
     from multiviewstitch_tpu_torch.core.transforms import rotation_angle_deg
+    return (abs(float(T.s) - gt_s) / gt_s, rotation_angle_deg(T.R, gt.R),
+            float(np.linalg.norm(T.t.numpy() - gt.t.numpy())))
+
+
+def check_similarity(name, T, gt, gt_s, limits=HARD):
+    s_err, ang, t_err = similarity_errors(T, gt, gt_s)
+    assert s_err <= limits[0], f"{name}: scale {float(T.s)} vs {gt_s}"
+    assert ang < limits[1], f"{name}: rotation error {ang} deg"
+    assert t_err < limits[2], f"{name}: translation error {t_err}"
+
+
+def check_slice(name, dev, gt, res, pts, nrm, moved, mesh, limits=HARD):
     T = res.transforms[0]
-    s_err = abs(float(T.s) - GT_S) / GT_S
-    ang = rotation_angle_deg(T.R, gt.R)
-    t_err = float(np.linalg.norm(T.t.numpy() - gt.t.numpy()))
+    _, ang, t_err = similarity_errors(T, gt, GT_S)
     rmse = rmse_to(pts, moved.vertices, dev)
     v, f = mesh
     log(f"slice {name}: s {float(T.s):.5f} (gt {GT_S}), rotation error "
@@ -473,9 +537,7 @@ def check_slice(name, dev, gt, res, pts, nrm, moved, mesh):
         f"{res.keyframes}, residual {res.residuals[0]:.5f}, fused points "
         f"{len(pts)}, fused RMSE {rmse:.5f}, mesh {len(v)} verts / "
         f"{len(f)} faces")
-    assert s_err <= 0.05, f"{name}: scale {float(T.s)} vs {GT_S}"
-    assert ang < 3.0, f"{name}: rotation error {ang} deg"
-    assert t_err < 0.08, f"{name}: translation error {t_err}"
+    check_similarity(name, T, gt, GT_S, limits)
     assert len(pts) > 2000 and np.isfinite(pts).all() and \
         np.isfinite(nrm).all()
     assert rmse < 0.05, f"{name}: fused-cloud RMSE {rmse}"
@@ -507,6 +569,44 @@ def phase_slice(dev):
     log("turned-arc stage wall times (warm, synced): " + ", ".join(
         f"{k} {v:.4f}" for k, v in t.items()))
     return launches
+
+
+# phase 4's noisy and refined runs: (name, sensor-noise level, second arc's
+# centre, refine)
+NOISE_REFINE_RUNS = (
+    ("noise 1x", 1.0, 0.0, False),
+    ("noise 2x", 2.0, 0.0, False),
+    ("turned arc, pose graph", 0.0, ARC_CENTER_DEG, "pose_graph"),
+    ("turned arc, BA", 0.0, ARC_CENTER_DEG, "ba"),
+    ("noise 1x, BA", 1.0, 0.0, "ba"),
+)
+
+
+def phase_noise_refine(dev):
+    """config-2 under sensor noise and with each refinement, through
+    run_align; every run drives K1-K3 from zeroed launch counts."""
+    for name, level, arc, refine in NOISE_REFINE_RUNS:
+        outs = {}
+        with tempfile.TemporaryDirectory() as wd:
+            kernels.reset_launch_counts()
+            t, gt, res, pts, nrm, moved, mesh = run_slice(
+                dev, wd, arc, noise=level, refine=refine, outs=outs)
+            torch.cuda.synchronize()
+            launches = kernels.launch_counts()
+        for k in kernels.KERNELS:
+            assert launches[k] > 0, f"{name}: {k} was not launched"
+        check_slice(name, dev, gt, res, pts, nrm, moved, mesh,
+                    NOISE if level else HARD)
+        m = res.metrics
+        if refine == "ba":
+            assert m["ba_rmse_px"] <= m["ba_rmse_init_px"], m
+        if refine:
+            assert "refine_s" in t, t
+        n_tsdf = len(outs["tsdf_s"][0])
+        log(f"slice {name}: refine {refine}, metrics {m}; TSDF mesh "
+            f"{n_tsdf} vertices before the trim (the JAX package keeps at "
+            f"most 65,536); launches {launches}; stage wall times (warm, "
+            "synced): " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
 
 
 # record_function ranges of ops/poisson.reconstruct_poisson's steps
@@ -587,6 +687,22 @@ def phase_cli():
             assert os.path.getsize(os.path.join(wd, "Result", name)) > 0
     log(f"cli align --demo --device cuda: rc 0 in "
         f"{time.perf_counter() - t0:.2f} s")
+    with tempfile.TemporaryDirectory() as wd:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = main(["align", "--demo", "--refine", "ba", "--debug-artifacts",
+                   "--device", "cuda", "--workdir", wd, "--force"])
+        torch.cuda.synchronize()
+        launches = kernels.launch_counts()
+        assert rc == 0, f"cli align --refine ba returned {rc}"
+        pngs = sorted(f for f in os.listdir(os.path.join(wd, "Match"))
+                      if f.endswith(".png"))
+        assert len(pngs) == 1, pngs
+        for k in ("consistency", "oriented_points"):
+            assert launches[k] > 0, f"align --refine ba: {k} not launched"
+    log(f"cli align --demo --refine ba --debug-artifacts --device cuda: rc 0 "
+        f"in {time.perf_counter() - t0:.2f} s, Match/{pngs[0]}, launches "
+        f"{launches}")
     with tempfile.TemporaryDirectory() as wd:
         t0 = time.perf_counter()
         rc = main(["pipeline", "--demo", "--device", "cuda", "--workdir", wd,
@@ -706,6 +822,22 @@ def check_config_run(name, dev, wd, gt, moved, t):
     return len(v), len(f)
 
 
+def exact_largest_component(verts, faces):
+    """Vertex count of the mesh's largest edge-connected component, by
+    scipy's connected_components (independent of solvers/unionfind)."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+    n = len(verts)
+    e = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]],
+                        faces[:, [2, 0]]])
+    _, comp = connected_components(coo_matrix(
+        (np.ones(len(e), np.int8), (e[:, 0], e[:, 1])), shape=(n, n)),
+        directed=False)
+    face_comp = comp[faces[:, 0]]
+    best = np.bincount(face_comp).argmax()
+    return int(np.unique(faces[face_comp == best]).size)
+
+
 def log_poisson_profile(prof, wall, depth):
     """Device busy share of a profiled Poisson stage, and each step's host
     span and the device time of the kernels it launched (its
@@ -737,8 +869,13 @@ def phase_config(dev):
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
         log(f"launches during the config run: {launches}")
-        check_config_run("PsnDptMax 10 (Poisson 1024^3; poisson_s "
-                         "profiled)", dev, wd, gt, moved, t)
+        n_v, _ = check_config_run("PsnDptMax 10 (Poisson 1024^3; poisson_s "
+                                  "profiled)", dev, wd, gt, moved, t)
+        n_exact = exact_largest_component(*outs["all_seq_proj_s"][:2])
+        log(f"config PsnDptMax 10: Model.obj {n_v} verts, the exact largest "
+            f"component of the reconstructed mesh {n_exact} verts (scipy); "
+            f"trim_write_s {t['trim_write_s']:.4f} s")
+        assert n_v == n_exact, (n_v, n_exact)
         for k in ("consistency", "oriented_points"):
             assert launches[k] > 0, f"{k} was not launched by align --config"
         log_poisson_profile(prof, t["poisson_s"],
@@ -810,16 +947,10 @@ def body_sequences(dev):
 
 
 def write_body_layout(dev, root):
-    """The body sequences in the reference's layout, the fused scan as
-    Result/Model.obj and SRT.txt = [gt] under ``root``/work; returns
-    (config.txt, workdir, sequences, gt, template, body, scan)."""
-    from multiviewstitch_tpu_torch.core.transforms import Similarity
-    from multiviewstitch_tpu_torch.io.meshio import write_obj
-    from multiviewstitch_tpu_torch.io.srt import save_srt
-    from multiviewstitch_tpu_torch.ops.tsdf import fuse_multi_sequence
+    """The body sequences in the reference's layout under ``root``, with
+    config-2's knobs (body_bench's align config); returns (config.txt,
+    sequences, gt, template, body)."""
     from multiviewstitch_tpu_torch.pipeline.ingest import save_sequence_dir
-    from multiviewstitch_tpu_torch.solvers.unionfind import (
-        retain_largest_component)
     kernels.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -833,26 +964,58 @@ def write_body_layout(dev, root):
         f.write("./seq0/\n./seq1/\n")
     config = os.path.join(root, "config.txt")
     with open(config, "w") as f:
-        f.write("ImgPathList ./imgPathList.txt\n")
-    t0 = time.perf_counter()
-    sv, sf, _ = fuse_multi_sequence(
+        f.write(CONFIG_TXT)
+    cover = [float((s.disparity > 0).float().mean()) for s in seqs]
+    log(f"body: 2 x {BODY_FRAMES} frames at {BODY_W}x{BODY_H} rendered by "
+        f"K3 in {t_render:.4f} s (coverage {cover[0]:.4f} / {cover[1]:.4f})")
+    return config, seqs, gt, tmpl, body
+
+
+def body_align(dev, config, wd, seqs, gt, body):
+    """``align --config --refine ba`` of the body (body_bench's flow,
+    bench/body_bench.py:141-165) through cli.main, held to the hard limits;
+    and the scan fused through the true similarity as a control. Returns
+    the aligned similarity and the run's Model.obj (vertices, faces)."""
+    from multiviewstitch_tpu_torch.cli import main
+    from multiviewstitch_tpu_torch.core.transforms import Similarity
+    from multiviewstitch_tpu_torch.io.meshio import read_obj
+    from multiviewstitch_tpu_torch.io.srt import load_srt
+    from multiviewstitch_tpu_torch.ops.tsdf import fuse_multi_sequence
+    from multiviewstitch_tpu_torch.solvers.unionfind import (
+        retain_largest_component)
+    t, outs = {}, {}
+    kernels.reset_launch_counts()
+    rc = main(["align", "--config", config, "--workdir", wd, "--refine", "ba",
+               "--grid", str(BODY_GRID), "--set", "max_keypoints=512",
+               "--device", str(dev), "--force"], stage=synced_timer(t, outs))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    assert rc == 0, f"cli align --config --refine ba (body) returned {rc}"
+    for k in ("consistency", "oriented_points"):
+        assert launches[k] > 0, f"body align: {k} was not launched"
+    T = load_srt(os.path.join(wd, "Result", "SRT.txt"))[0]
+    s_err, ang, t_err = similarity_errors(T, gt, BODY_S)
+    m = outs["refine_s"].metrics
+    sv, _, sf = read_obj(os.path.join(wd, "Result", "Model.obj"))
+    log(f"body align --refine ba: s {float(T.s):.5f} (gt {BODY_S}, error "
+        f"{s_err:.5f}), rotation error {ang:.4f} deg, translation error "
+        f"{t_err:.5f}; BA {m}; scan (Model.obj) {len(sv)} vertices / "
+        f"{len(sf)} faces, vertex RMSE to the body "
+        f"{rmse_to(sv, body, dev):.5f}; launches {launches}")
+    log("body align stage wall times (synced): " + ", ".join(
+        f"{k} {x:.4f}" for k, x in t.items()) +
+        f"; total {sum(t.values()):.4f} s")
+    check_similarity("body align", T, gt, BODY_S)
+    assert m["ba_rmse_px"] <= m["ba_rmse_init_px"], m
+    cv, cf, _ = fuse_multi_sequence(
         [s.disparity for s in seqs], [s.cams for s in seqs],
         [gt, Similarity.identity(device="cpu")], grid=BODY_GRID,
         min_dsp=1e-3, max_dsp=10.0)
-    sv, sf, _ = retain_largest_component(sv, sf)
-    torch.cuda.synchronize()
-    t_fuse = time.perf_counter() - t0
-    wd = os.path.join(root, "work")
-    os.makedirs(os.path.join(wd, "Result"))
-    write_obj(os.path.join(wd, "Result", "Model.obj"), sv, None, sf)
-    save_srt(os.path.join(wd, "Result", "SRT.txt"), [gt])
-    cover = [float((s.disparity > 0).float().mean()) for s in seqs]
-    log(f"body: 2 x {BODY_FRAMES} frames at {BODY_W}x{BODY_H} rendered by "
-        f"K3 in {t_render:.4f} s (coverage {cover[0]:.4f} / {cover[1]:.4f});"
-        f" scan fused at grid {BODY_GRID}: {len(sv)} vertices / {len(sf)} "
-        f"faces in its largest component ({t_fuse:.4f} s), vertex RMSE to "
-        f"the body {rmse_to(sv, body, dev):.5f}")
-    return config, wd, seqs, gt, tmpl, body, (sv, sf)
+    cv, cf, _ = retain_largest_component(cv, cf)
+    log(f"body control, the scan fused through the true similarity: "
+        f"{len(cv)} vertices, vertex RMSE to the body "
+        f"{rmse_to(cv, body, dev):.5f}")
+    return T, (sv, sf)
 
 
 def deform_run(dev, wd, profiled=False):
@@ -936,8 +1099,9 @@ def phase_body(dev):
     from multiviewstitch_tpu_torch.core.transforms import Similarity
     from multiviewstitch_tpu_torch.pipeline.deform_render import render_stage
     with tempfile.TemporaryDirectory() as root:
-        config, wd, seqs, gt, (tv, tf, _), body, (sv, sf) = \
-            write_body_layout(dev, root)
+        config, seqs, gt, (tv, tf, _), body = write_body_layout(dev, root)
+        wd = os.path.join(root, "work")
+        T, (sv, sf) = body_align(dev, config, wd, seqs, gt, body)
         runs = [deform_run(dev, wd) for _ in range(2)]
         t_p, prof, v = deform_run(dev, wd, profiled=True)
         for name, (t, _, v_run) in zip(("cold", "warm"), runs):
@@ -991,7 +1155,7 @@ def phase_body(dev):
             m = {}
             render_stage(torch.as_tensor(mv, device=dev),
                          torch.as_tensor(mf.astype(np.int64), device=dev),
-                         [gt, ident], cams, measured_disparity=meas,
+                         [T, ident], cams, measured_disparity=meas,
                          metrics=m)
             log(f"body render of the {name}: coverage "
                 f"{m['render_coverage']:.4f}, measured overlap "
@@ -1061,16 +1225,123 @@ def phase_config3_loop(dev):
     assert err <= 1e-4, f"config-3 loop, card vs CPU: {err}"
 
 
+# phase 9: the BA shape named in multiviewstitch_tpu/solvers/ba.py:20-21
+BA_CAMS, BA_POINTS, BA_ITERS, BA_CPU_ITERS = 64, 16384, 20, 5
+BA_STATE_GAP_MAX = 1e-3
+
+
+def synth_ba(dev, n_cams=BA_CAMS, n_pts=BA_POINTS, seed=0):
+    """bench/solvers.py's synth_ba (dense: every camera sees every point),
+    built with the port's rodrigues: cameras on an arc, 0.5 px noise, a
+    perturbed start. Cameras 0 and n_cams-1 are fixed at their true poses,
+    so the scale is no free direction and two devices' states compare. Returns (problem,
+    start state) on ``dev``."""
+    from multiviewstitch_tpu_torch.solvers import ba
+    rng = np.random.default_rng(seed)
+    K = np.array([[400.0, 0, 320.0], [0, 400.0, 240.0], [0, 0, 1]],
+                 np.float32)
+    pts = rng.uniform(-0.8, 0.8, size=(n_pts, 3)).astype(np.float32)
+    pts[:, 2] += 5.0
+    rvec = np.stack([[0.0, (i - n_cams / 2) * 0.04, 0.0]
+                     for i in range(n_cams)]).astype(np.float32)
+    tvec = np.stack([[0.1 * i, 0.0, 0.0]
+                     for i in range(n_cams)]).astype(np.float32)
+    cam_idx = np.repeat(np.arange(n_cams), n_pts)
+    pt_idx = np.tile(np.arange(n_pts), n_cams)
+    R = ba.rodrigues(torch.as_tensor(rvec)).numpy()
+    pc = np.einsum("cij,pj->cpi", R, pts) + tvec[:, None]
+    uv_all = np.stack([K[0, 0] * pc[..., 0] / pc[..., 2] + K[0, 2],
+                       K[1, 1] * pc[..., 1] / pc[..., 2] + K[1, 2]], -1)
+    uv = uv_all[cam_idx, pt_idx] + rng.normal(
+        size=(len(cam_idx), 2)).astype(np.float32) * 0.5
+    prob = ba.make_problem(K, cam_idx, pt_idx, uv, n_pts,
+                           max_obs_per_point=n_cams, n_cams=n_cams,
+                           fixed_cams=[0, n_cams - 1], device=dev)
+    start = [a + rng.normal(size=a.shape).astype(np.float32) * m
+             for a, m in ((rvec, 0.01), (tvec, 0.03), (pts, 0.02))]
+    for a, true in zip(start[:2], (rvec, tvec)):     # the fixed cameras
+        a[[0, -1]] = true[[0, -1]]
+    return prob, ba.BAState(*(torch.as_tensor(a, device=dev) for a in start))
+
+
+def phase_ba(dev):
+    """solve_ba at 64 cameras x 16,384 points on the card: ms per LM
+    iteration, peak memory, device-busy share; the card against the CPU
+    after BA_CPU_ITERS iterations."""
+    from torch.profiler import ProfilerActivity, profile
+    from multiviewstitch_tpu_torch.solvers import ba
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prob, st0 = synth_ba(dev)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    n_obs = int(prob.mask.sum())
+
+    def lm(st, iters, events=None):
+        best = ba.reprojection_rmse(prob, st)
+        lam = torch.full((), 1e-3, device=dev)
+        for _ in range(iters):
+            if events is not None:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+            st, best, lam = ba.lm_step(prob, st, best, lam)
+        if events is not None:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        return st, best
+
+    st5, _ = lm(st0, BA_CPU_ITERS)                # also the warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ev = []
+    st, best = lm(st0, BA_ITERS, ev)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms = [a.elapsed_time(b) for a, b in zip(ev[:-1], ev[1:])]
+    rmse0 = float(ba.reprojection_rmse(prob, st0))
+    rmse = float(best)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lm(st0, BA_ITERS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, n_ev = device_busy_us(prof)
+
+    cpu = torch.device("cpu")
+    prob_c, st0_c = synth_ba(cpu)
+    t0 = time.perf_counter()
+    st5_c, _ = ba.solve_ba(prob_c, st0_c, iters=BA_CPU_ITERS)
+    t_cpu = time.perf_counter() - t0
+    gap = max(float((a.cpu() - b).abs().max()) for a, b in zip(st5, st5_c))
+    log(f"BA {BA_CAMS} cameras x {BA_POINTS} points, {n_obs} observations "
+        f"(problem built in {t_build:.3f} s): RMSE {rmse0:.4f} -> {rmse:.4f} "
+        f"px in {BA_ITERS} LM iterations; {statistics.median(ms):.3f} ms per "
+        f"LM iteration (CUDA events, median; all " +
+        ", ".join(f"{x:.2f}" for x in ms) + f"); peak device memory "
+        f"{peak:.3f} GB; profiled {BA_ITERS} iterations: wall {wall:.4f} s, "
+        f"device busy {busy / 1e6:.4f} s ({100 * busy / 1e6 / wall:.1f} %), "
+        f"{n_ev} device events")
+    log("    top device events: " + top_device_events(prof))
+    log(f"BA card vs CPU after {BA_CPU_ITERS} iterations: max abs state "
+        f"difference {gap:.3g} (bound {BA_STATE_GAP_MAX}); CPU "
+        f"{t_cpu:.3f} s for {BA_CPU_ITERS} iterations")
+    assert rmse < 1.0, f"BA: final RMSE {rmse} px"
+    assert gap <= BA_STATE_GAP_MAX, f"BA card vs CPU: {gap}"
+
+
 def main():
     name, smi_line = phase_device()
     dev = torch.device("cuda")
     phase_build()
     rec = phase_kernels(dev)
     launches = phase_slice(dev)
+    phase_noise_refine(dev)
     phase_cli()
     phase_profile(dev)
     phase_config(dev)
     phase_body(dev)
+    phase_ba(dev)
     out = []
     for k in kernels.KERNELS:
         src, replaces = SOURCES[k]

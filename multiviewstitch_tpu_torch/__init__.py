@@ -6,7 +6,8 @@ rendered with the port's rasterizer, per-sequence prep (foreground mask,
 view synthesis, SIFT, unprojection), the batched edge sweep, the SRT solve
 and greedy chain, fusion (consistency check, oriented point sampling),
 per-frame meshes, TSDF or screened Poisson reconstruction and the
-AllSeqProj trim; and the reference's second mode: ``deform`` (rigid
+AllSeqProj trim, with optional view-graph refinement (pose graph or
+bundle adjustment); and the reference's second mode: ``deform`` (rigid
 template alignment, ARAP fit) and ``render`` (the deformed model drawn
 into every frame, optional depth refinement). The JAX package beside it is the reference the port is
 tested against; this package imports ``torch`` and never ``jax``.
@@ -19,17 +20,19 @@ Package layout (mirrors multiviewstitch_tpu, of which it imports nothing):
              filters, tsdf, poisson, meshing, segmentation, mesh_normals,
              depth_refine
   solvers/   srt (Kabsch + RANSAC), unionfind, pca, alignment (rigid
-             template fit), deformation (ARAP)
+             template fit), deformation (ARAP), ba (bundle adjustment),
+             pose_graph
   models/    template_body (its own copy), parts (16-part labels, 1-NN)
-  pipeline/  fixtures, ingest, executor, match_edges, align_seq,
-             deform_render
+  pipeline/  fixtures (scenes, sensor noise), ingest, executor,
+             match_edges, align_seq, ba_refine, deform_render
   io/        srt (SRT.txt), meshio (OBJ, NPTS), manifest, rawdepth (its
              own copies)
   csrc/      CUDA C++ sources of K1-K3 (sm_90a)
   kernels/   nvcc build + ctypes wrappers + launch counts
+  utils/     debug_artifacts, debug_mode, metrics (their own copies)
   cli.py     ``align``, ``deform``, ``render`` and ``pipeline`` entry points
   interop.py numpy -> torch converters for cameras, similarities,
-             sequences and meshes
+             sequences, meshes, BA problems and match candidates
 """
 
 __version__ = "0.1.0"

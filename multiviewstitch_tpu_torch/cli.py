@@ -6,7 +6,8 @@ second mode, Deform + Render, Processor.cpp:1108-1191) and ``pipeline``
 Usage:
   python -m multiviewstitch_tpu_torch.cli align --config <dir>/config.txt \
       [--backend poisson] [--write-mesh] [--set segment=true] \
-      [--set all_seq_proj=true] [--device cuda]
+      [--set all_seq_proj=true] [--refine [ba]] [--debug-artifacts] \
+      [--device cuda]
   python -m multiviewstitch_tpu_torch.cli align --demo --device cpu --grid 48
   python -m multiviewstitch_tpu_torch.cli deform --workdir <wd> [--demo]
   python -m multiviewstitch_tpu_torch.cli render --workdir <wd> \
@@ -20,10 +21,14 @@ scaled copy of the template) and writes Result/deform.obj; ``render`` draws
 deform.obj into every frame of every sequence of --config (each through
 the inverse of its SRT.txt similarity) as <sequence>/DATA/Render/_depth<i>
 .raw + .jpg, or without --config into a 4-camera ring framed on the model,
-under <workdir>/DATA/Render. The flags are those of
+under <workdir>/DATA/Render. ``--refine`` refines the pose chain by a
+pose graph, ``--refine ba`` by bundle adjustment; ``--debug-artifacts``
+writes the chosen pairs' match dumps to <workdir>/Match; with
+MVS_DEBUG_NUMERICS=1 in the environment ``align`` checks the pose chain
+and the reconstructed mesh for non-finite values. The flags are those of
 ``multiviewstitch_tpu.cli`` plus --device (default cuda; there is no
-fallback to the CPU). Paths not ported yet — --refine, --debug-artifacts
-and the bench command — are refused with a message and exit code 2.
+fallback to the CPU). The bench command is not ported: it exits with a
+message and code 2.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import time
 import numpy as np
 import torch
 
-# parts of the JAX CLI this port does not implement yet (refused, never
+# commands of the JAX CLI this port does not implement yet (refused, never
 # silently ignored)
 _NOT_PORTED_CMDS = ("bench",)
 # the camera view direction deform's rigid init fixes the scan's third
@@ -105,15 +110,6 @@ def _apply_overrides(cfg, overrides):
     return cfg.replace(**kw)
 
 
-def _refusal(args):
-    """Why this run needs a path the port does not have yet (or None)."""
-    if args.refine:
-        return f"--refine {args.refine}"
-    if args.debug_artifacts:
-        return "--debug-artifacts"
-    return None
-
-
 def _call(name, fn):
     return fn()
 
@@ -137,28 +133,40 @@ def write_frame_meshes(seqs, cfg, models_dir: str):
 
 
 def run_align(seqs, cfg, grid: int, result_dir: str, stage=_call, *,
-              backend: str = "tsdf", models_dir: str | None = None):
-    """align -> fuse -> [per-frame meshes] -> TSDF or Poisson ->
-    [AllSeqProj trim] -> largest component, then write SRT.txt, PSR.npts
-    and Model.obj into ``result_dir``. Each step runs as ``stage(name,
-    fn)`` — prep_s, sweep_solve_s, fuse_s, write_mesh_s (with
+              backend: str = "tsdf", models_dir: str | None = None,
+              refine=False, debug_dir: str | None = None,
+              check_numerics: bool = False):
+    """align [-> refine] -> fuse -> [per-frame meshes] -> TSDF or Poisson
+    -> [AllSeqProj trim] -> largest component, then write SRT.txt,
+    PSR.npts and Model.obj into ``result_dir``. Each step runs as
+    ``stage(name, fn)`` — prep_s, sweep_solve_s, refine_s (with
+    ``refine``: True / "pose_graph" or "ba"), fuse_s, write_mesh_s (with
     ``models_dir``), tsdf_s or poisson_s, all_seq_proj_s (with
     cfg.all_seq_proj) and trim_write_s — so a caller can time or profile
-    them. The Poisson depth is min(cfg.psn_dpt_max, 10). Returns (result,
-    points, normals, verts, faces)."""
+    them. ``debug_dir``: the match dumps' directory. ``check_numerics``:
+    raise FloatingPointError at a non-finite pose chain or mesh (the fused
+    cloud is always checked). The Poisson depth is min(cfg.psn_dpt_max,
+    10). Returns (result, points, normals, verts, faces)."""
     from .io.meshio import write_obj, write_npts
     from .io.srt import save_srt
     from .pipeline.align_seq import align_sequences, fuse_sequences
     from .pipeline.match_edges import prep_sequence
     from .solvers.unionfind import retain_largest_component
+    from .utils.debug_mode import check_finite, run_stage
 
     preps = stage("prep_s", lambda: [prep_sequence(s, cfg) for s in seqs])
-    result = stage("sweep_solve_s", lambda: align_sequences(
-        seqs, cfg, seed=0, preps=preps))
-    _log(f"pose chain solved (residuals {result.residuals})")
-    pts, nrm = stage("fuse_s", lambda: fuse_sequences(seqs, result, cfg))
-    if not (np.isfinite(pts).all() and np.isfinite(nrm).all()):
-        raise FloatingPointError("fuse: non-finite fused points or normals")
+    result = run_stage(lambda: align_sequences(
+        seqs, cfg, seed=0, preps=preps, refine=refine, debug_dir=debug_dir,
+        stage=stage), stage="align")
+    _log(f"pose chain solved (residuals {result.residuals})"
+         + (f"; refined: {result.metrics}" if refine else ""))
+    if check_numerics:
+        for k, T in enumerate(result.transforms):
+            check_finite("align", **{f"s{k}": T.s, f"R{k}": T.R,
+                                     f"t{k}": T.t})
+    pts, nrm = stage("fuse_s", lambda: run_stage(
+        fuse_sequences, seqs, result, cfg, stage="fuse"))
+    check_finite("fuse", points=pts, normals=nrm)
     _log(f"fused cloud: {len(pts)} oriented points")
     if models_dir is not None:
         stage("write_mesh_s", lambda: write_frame_meshes(seqs, cfg,
@@ -181,6 +189,8 @@ def run_align(seqs, cfg, grid: int, result_dir: str, stage=_call, *,
             [s.disparity for s in seqs], [s.cams for s in seqs],
             result.transforms, grid=grid, min_dsp=cfg.min_dsp,
             max_dsp=cfg.max_dsp))
+    if check_numerics:
+        check_finite("reconstruct", vertices=verts)
 
     if cfg.all_seq_proj:
         # AllSeqProj trim (Processor.cpp:1064-1102): keep only vertices
@@ -226,11 +236,6 @@ def cmd_align(args, stage=_call) -> int:
     cfg = (load_legacy_config(args.config) if args.config
            else demo_config())
     cfg = _apply_overrides(cfg, args.set)
-    why = _refusal(args)
-    if why:
-        _log(f"{why} is not ported to multiviewstitch_tpu_torch yet; use "
-             "python -m multiviewstitch_tpu.cli for it")
-        return 2
 
     t0 = time.perf_counter()
     if args.config:
@@ -246,7 +251,8 @@ def cmd_align(args, stage=_call) -> int:
     # checkpoint/resume: skip when the disparities, config and options are
     # unchanged (the JAX CLI's hash, plus the device)
     write_mesh = args.write_mesh or cfg.write_mesh
-    opts = f"{args.grid}:{args.backend}:{args.write_mesh}:{args.device}"
+    opts = (f"{args.grid}:{args.backend}:{args.write_mesh}:{args.refine}:"
+            f"{args.device}")
     in_hash = hash_arrays(
         cfg=np.frombuffer(repr(cfg).encode(), dtype=np.uint8),
         opts=np.frombuffer(opts.encode(), dtype=np.uint8),
@@ -264,9 +270,13 @@ def cmd_align(args, stage=_call) -> int:
              f"{1 << cfg.psn_dpt_max}); use --backend poisson for full "
              "depth or --grid to override")
     models_dir = manifest.stage_dir("Models") if write_mesh else None
-    _, pts, _, verts, faces = run_align(seqs, cfg, grid, result_dir, stage,
-                                        backend=args.backend,
-                                        models_dir=models_dir)
+    debug_dir = (os.path.join(args.workdir, "Match")
+                 if args.debug_artifacts else None)
+    _, pts, _, verts, faces = run_align(
+        seqs, cfg, grid, result_dir, stage, backend=args.backend,
+        models_dir=models_dir, refine=args.refine or False,
+        debug_dir=debug_dir,
+        check_numerics=os.environ.get("MVS_DEBUG_NUMERICS") == "1")
     manifest.mark_done("align", [os.path.join(result_dir, f)
                                  for f in ("SRT.txt", "PSR.npts",
                                            "Model.obj")],
@@ -457,9 +467,12 @@ def main(argv=None, stage=_call) -> int:
                             "date")
     align.add_argument("--refine", nargs="?", const="pose_graph",
                        default=None, choices=("pose_graph", "ba"),
-                       help="view-graph refinement (not ported yet)")
+                       help="view-graph refinement: bare --refine = global "
+                            "similarity pose graph over all matches; "
+                            "--refine ba = reprojection bundle adjustment "
+                            "over keyframe cameras + merged pixel tracks")
     align.add_argument("--debug-artifacts", action="store_true",
-                       help="match visualizations (not ported yet)")
+                       help="dump match visualizations to <workdir>/Match/")
     passes = argparse.ArgumentParser(add_help=False)
     passes.add_argument("--passes", type=int, default=2,
                         help="ARAP deform passes")

@@ -1,7 +1,8 @@
 """numpy -> torch converters for the state the align path carries.
 
 The port has no learned weights: its state is cameras, similarities,
-sequences and, in mode 2, meshes with part labels. Callers holding arrays from elsewhere (for example the JAX
+sequences, match candidates and BA problems and, in mode 2, meshes with
+part labels. Callers holding arrays from elsewhere (for example the JAX
 package's objects, after ``np.asarray``) hand them over as numpy, so the
 port never sees a foreign array type.
 """
@@ -13,8 +14,9 @@ import torch
 
 from .core.cameras import CameraBatch
 from .core.transforms import Similarity
-from .pipeline.align_seq import Sequence
+from .pipeline.align_seq import PairCandidate, Sequence
 from .pipeline.deform_render import Mesh
+from .solvers.ba import BAProblem, BAState
 
 
 def _f32(a, device):
@@ -48,3 +50,35 @@ def mesh_from_numpy(verts, faces, labels=None, *, device) -> Mesh:
                 torch.as_tensor(np.array(faces, np.int64), device=device),
                 None if labels is None else
                 torch.as_tensor(np.array(labels, np.int32), device=device))
+
+
+def candidate_from_numpy(frame_i, frame_j, uv1, uv2, p1, p2, mask, residual,
+                         num_matches) -> PairCandidate:
+    """A frame pair's surviving matches (the JAX PairCandidate's fields)
+    as the port's PairCandidate, whose arrays stay numpy."""
+    return PairCandidate(int(frame_i), int(frame_j),
+                         np.array(uv1, np.int32), np.array(uv2, np.int32),
+                         np.array(p1, np.float32), np.array(p2, np.float32),
+                         np.array(mask, bool), float(residual),
+                         int(num_matches))
+
+
+def ba_problem_from_numpy(K, cam_idx, pt_idx, uv, mask, pt_obs, pt_obs_mask,
+                          fixed_cams, cam_of, uv_g, *, device) -> BAProblem:
+    """The JAX BAProblem's fields -> BAProblem on ``device`` (float32
+    values, int64 indices, bool masks)."""
+    def idx(a):
+        return torch.as_tensor(np.array(a, np.int64), device=device)
+
+    def flag(a):
+        return torch.as_tensor(np.array(a, bool), device=device)
+    return BAProblem(_f32(K, device), idx(cam_idx), idx(pt_idx),
+                     _f32(uv, device), flag(mask), idx(pt_obs),
+                     flag(pt_obs_mask), flag(fixed_cams), idx(cam_of),
+                     _f32(uv_g, device))
+
+
+def ba_state_from_numpy(rvec, tvec, points, *, device) -> BAState:
+    """rvec [C,3], tvec [C,3], points [P,3] -> BAState on ``device``."""
+    return BAState(_f32(rvec, device), _f32(tvec, device),
+                   _f32(points, device))

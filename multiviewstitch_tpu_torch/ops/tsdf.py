@@ -6,7 +6,8 @@ PyTorch counterpart of ``multiviewstitch_tpu/ops/tsdf.py``:
      depth, truncated to +-trunc and averaged over observing frames);
   2. surface nets: one vertex per sign-change cell (mean of its edge
      zero crossings), two triangles per grid edge with a sign change,
-     with the JAX package's vertex/face capacities, or none (Poisson).
+     with the JAX package's vertex/face capacities, or none (Poisson and
+     ``fuse_multi_sequence``, which keep every vertex and face).
 """
 
 from __future__ import annotations
@@ -187,7 +188,8 @@ def fuse_multi_sequence(seq_disparities, seq_cams, transforms, *,
     """Fuse several sequences' depth maps into one TSDF in the reference
     frame (sequence k's transform T_k maps its world into the reference
     frame; the grid spans the points plus a 5 % margin, truncation 3
-    voxels) and extract the surface. Returns (vertices, faces, tsdf) with
+    voxels) and extract the whole surface (no vertex or face cap, unlike
+    the JAX package's 65,536 / 131,072). Returns (vertices, faces, tsdf) with
     numpy vertices/faces."""
     margin = 0.05
     dev = seq_disparities[0].device
@@ -230,9 +232,6 @@ def fuse_multi_sequence(seq_disparities, seq_cams, transforms, *,
     vals = torch.where(wsum > 0, acc / wsum.clamp_min(1.0),
                        torch.ones_like(acc))
     tsdf = TSDF(vals, wsum, origin, spacing)
-    mesh = surface_nets(tsdf)
-    verts = mesh.vertices[:mesh.num_vertices].cpu().numpy()
-    faces = mesh.faces[:mesh.num_faces].cpu().numpy()
-    nv = mesh.num_vertices
-    faces = faces[(faces >= 0).all(1) & (faces < nv).all(1)]
-    return verts, faces.astype(np.int32), tsdf
+    mesh = surface_nets(tsdf, max_vertices=None, max_faces=None)
+    return (mesh.vertices.cpu().numpy(),
+            mesh.faces.cpu().numpy().astype(np.int32), tsdf)

@@ -1,1 +1,2 @@
-"""Stage orchestration (align), on-disk ingest and synthetic fixtures."""
+"""Stage orchestration (align, view-graph refinement), on-disk ingest and
+synthetic fixtures."""

@@ -1,9 +1,11 @@
 """Synthetic scene fixtures: known mesh + known cameras -> rendered RGB-D.
 
 PyTorch counterpart of ``multiviewstitch_tpu/pipeline/fixtures.py``
-(``uv_sphere``, ``ring_cameras``, ``make_scene``, ``textured_views``). The
-reference ships no data, so the demo inputs are disparity maps of a bumpy
-sphere rendered with the port's own rasterizer (K3 on the card).
+(``uv_sphere``, ``ring_cameras``, ``make_scene``, ``textured_views``,
+``shade_views``, and the noise models ``sensor_noise`` and
+``inject_outlier_matches``). The reference ships no data, so the demo
+inputs are disparity maps of a bumpy sphere rendered with the port's own
+rasterizer (K3 on the card).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import torch
 
 from ..core.cameras import CameraBatch, unproject_depth_map
 from ..core.transforms import Similarity, apply_points, inverse
+from ..ops.mesh_normals import vertex_normals
 from ..ops.rasterizer import render_sequence
 
 
@@ -151,3 +154,90 @@ def textured_views(scene: Scene) -> torch.Tensor:
          + 0.10 * torch.sin(57.0 * (p[:, 0] + p[:, 1] + p[:, 2])))
     img = torch.where(valid.reshape(-1), a * 255.0, torch.zeros_like(a))
     return img.reshape(scene.disparity.shape).to(torch.float32)
+
+
+def sensor_noise(gray: np.ndarray, disparity: np.ndarray, level: float,
+                 seed: int = 0):
+    """Apply a realistic RGB-D sensor noise model at strength ``level``
+    (0 = clean; 1 = a plausible hand-held consumer depth camera, the
+    reference's operating regime; its pixel_err/dsp_err/conf_min thresholds
+    exist for this). numpy in, numpy out, drawing the JAX fixture's numbers
+    from ``np.random.default_rng(seed)``.
+
+    Photometric (gray, 0..255 scale): per-frame gain/offset drift (auto
+    exposure), radial vignetting, additive Gaussian pixel noise.
+    Geometric (disparity): multiplicative Gaussian noise, then quantization
+    to discrete disparity steps (the staircase of real stereo and
+    structured-light sensors), plus salt dropouts (invalid pixels).
+
+    Returns (gray_noisy, disparity_noisy) as float32 copies.
+    """
+    rng = np.random.default_rng(seed)
+    n, h, w = gray.shape
+    g = gray.astype(np.float32).copy()
+    d = disparity.astype(np.float32).copy()
+    if level <= 0:
+        return g, d
+
+    # photometric: gain in [1-0.08L, 1+0.08L], offset +-4L gray levels,
+    # vignette up to 20%*L at the corners, noise sigma 2.5L
+    gain = 1.0 + rng.uniform(-0.08, 0.08, size=(n, 1, 1)) * level
+    offset = rng.uniform(-4.0, 4.0, size=(n, 1, 1)) * level
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    r2 = (((yy - h / 2) / (h / 2)) ** 2 + ((xx - w / 2) / (w / 2)) ** 2) / 2
+    vig = 1.0 - 0.2 * level * r2[None]
+    g = g * gain * vig + offset + \
+        rng.normal(size=g.shape).astype(np.float32) * 2.5 * level
+    g = np.clip(g, 0.0, 255.0).astype(np.float32)
+
+    # geometric: 1% * L multiplicative noise, quantize to 0.5% * L steps,
+    # 0.5% * L dropouts
+    valid = d > 0
+    d = d * (1.0 + rng.normal(size=d.shape).astype(np.float32) *
+             0.01 * level)
+    q = 0.005 * level * float(d[valid].mean()) if valid.any() else 0.0
+    if q > 0:
+        d = np.round(d / q) * q
+    drop = rng.random(d.shape) < 0.005 * level
+    d = np.where(valid & ~drop, d, 0.0).astype(np.float32)
+    return g, d
+
+
+def inject_outlier_matches(uv1: np.ndarray, uv2: np.ndarray,
+                           mask: np.ndarray, frac: float, width: int,
+                           height: int, seed: int = 0):
+    """Replace ``frac`` of the valid matches' second endpoints with uniform
+    random pixels: synthetic gross outliers for RANSAC and filter-cascade
+    robustness tests (the reference's RemoveOutliers rounds exist for
+    these, Processor.cpp:196-259). Returns (uv2 with outliers, their
+    indices)."""
+    rng = np.random.default_rng(seed)
+    uv2 = uv2.copy()
+    vi = np.flatnonzero(mask)
+    n_bad = int(len(vi) * frac)
+    bad = rng.choice(vi, size=n_bad, replace=False) if n_bad else \
+        np.zeros(0, np.int64)
+    uv2[bad, 0] = rng.integers(0, width, size=n_bad)
+    uv2[bad, 1] = rng.integers(0, height, size=n_bad)
+    return uv2, bad
+
+
+def shade_views(scene: Scene, light=(0.4, 0.7, 0.2)) -> torch.Tensor:
+    """Lambertian grayscale 'photos' [N,H,W] (0.2..1.0 on the surface, 0
+    elsewhere) from the scene's disparity maps and mesh: each pixel takes
+    the normal of its nearest mesh vertex (exact differences, 4096 pixels
+    at a time), on the scene's device."""
+    dev = scene.disparity.device
+    light = torch.as_tensor(np.asarray(light) / np.linalg.norm(light),
+                            dtype=torch.float32, device=dev)
+    verts = torch.as_tensor(scene.vertices, device=dev)
+    vn = vertex_normals(verts, torch.as_tensor(
+        np.asarray(scene.faces, np.int64), device=dev))
+    pts, valid = unproject_depth_map(scene.cams, scene.disparity, 1e-6, 1e6)
+    p = pts.reshape(-1, 3)
+    nearest = torch.cat([((c[:, None, :] - verts[None]) ** 2).sum(-1)
+                         .argmin(1) for c in p.split(4096)])
+    shade = (vn[nearest] @ light).abs()
+    img = torch.where(valid.reshape(-1), 0.2 + 0.8 * shade,
+                      torch.zeros_like(shade))
+    return img.reshape(scene.disparity.shape)

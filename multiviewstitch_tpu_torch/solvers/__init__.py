@@ -1,2 +1,3 @@
 """SRT estimation (Kabsch + RANSAC), the largest-component trim, point-set
-PCA, rigid template alignment and ARAP deformation."""
+PCA, rigid template alignment, ARAP deformation, bundle adjustment and the
+pose graph."""

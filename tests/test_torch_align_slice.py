@@ -6,7 +6,10 @@ Bounds: both recover gt within test_e2e_align's bounds (s 5 %, rotation
 3 deg, translation 0.08); the two solutions agree within 2 % in s and
 1.5 deg in rotation (RANSAC draws differ: JAX threefry, torch Philox);
 both fused clouds have RMSE < 0.05 to the moved mesh and their point
-counts agree within 10 %."""
+counts agree within 10 %. On JAX's own candidates and chain (handed over
+through interop), the port's build_ba_problem gives equal integer arrays
+and camera map and an initial state within 1e-5, and refit_similarities
+re-fits JAX's refined cameras within 1e-4."""
 
 import os
 import subprocess
@@ -16,11 +19,22 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
+from multiviewstitch_tpu.core.transforms import Similarity as JSim
 from multiviewstitch_tpu.ops.tsdf import fuse_multi_sequence as j_fuse_multi
-from multiviewstitch_tpu.pipeline.align_seq import (align_sequences as j_align,
-                                                    fuse_sequences as j_fuse)
+from multiviewstitch_tpu.pipeline import ba_refine as jbr
+from multiviewstitch_tpu.pipeline.align_seq import (
+    align_sequences as j_align, fuse_sequences as j_fuse,
+    match_sequence_pair as j_match_pair)
+from multiviewstitch_tpu.solvers.ba import solve_ba as j_solve_ba
 from multiviewstitch_tpu_torch.core.transforms import rotation_angle_deg
-from multiviewstitch_tpu_torch.interop import sequence_from_numpy
+from multiviewstitch_tpu_torch.interop import (ba_state_from_numpy,
+                                               candidate_from_numpy,
+                                               sequence_from_numpy,
+                                               similarity_from_numpy)
+from multiviewstitch_tpu_torch.pipeline import ba_refine as br
 from multiviewstitch_tpu_torch.io.srt import load_srt
 from multiviewstitch_tpu_torch.ops.tsdf import fuse_multi_sequence
 from multiviewstitch_tpu_torch.pipeline.align_seq import (align_sequences,
@@ -70,7 +84,8 @@ def slice_runs():
                                     grid=48, min_dsp=CFG.min_dsp,
                                     max_dsp=CFG.max_dsp)
     return dict(gt=gt, moved=moved, jres=jres, jpts=jpts, jmesh=(jv, jf),
-                tres=tres, tpts=tpts, tnrm=tnrm, tmesh=(tv, tf))
+                tres=tres, tpts=tpts, tnrm=tnrm, tmesh=(tv, tf),
+                jseqs=[seq1, seq2], tseqs=tseqs)
 
 
 def test_both_recover_gt_and_agree(slice_runs):
@@ -104,6 +119,57 @@ def test_tsdf_meshes_agree(slice_runs):
     assert len(tv) > 500 and abs(len(tv) - len(jv)) <= 0.1 * len(jv)
     kv, kf, _ = retain_largest_component(tv, tf)
     assert 0 < len(kf) <= len(tf) and kf.max() < len(kv)
+
+
+@pytest.fixture(scope="module")
+def jax_ba_inputs(slice_runs):
+    """JAX's candidates (its edge sweep, compiled by slice_runs) and chain,
+    and the same inputs as the port's objects."""
+    seq1, seq2 = slice_runs["jseqs"]
+    T, _, cands = j_match_pair(seq1, seq2, CFG, jax.random.key(0))
+    jchain = [T, JSim(jnp.float32(1.0), jnp.eye(3), jnp.zeros(3))]
+    jpairs = [(0, 1, c) for c in cands
+              if c.num_matches >= CFG.min_match_count]
+    tchain = [similarity_from_numpy(np.asarray(x.s), np.asarray(x.R),
+                                    np.asarray(x.t), "cpu") for x in jchain]
+    tpairs = [(k, l, candidate_from_numpy(
+        c.frame_i, c.frame_j, c.uv1, c.uv2, c.p1, c.p2, c.mask, c.residual,
+        c.num_matches)) for k, l, c in jpairs]
+    return dict(jseqs=[seq1, seq2], jchain=jchain, jpairs=jpairs,
+                tseqs=slice_runs["tseqs"], tchain=tchain, tpairs=tpairs)
+
+
+def test_build_ba_problem_matches_jax(jax_ba_inputs):
+    r = jax_ba_inputs
+    assert len(r["jpairs"]) >= 2
+    jprob, jst0, jmap = jbr.build_ba_problem(r["jseqs"], r["jpairs"],
+                                             r["jchain"])
+    prob, st0, cmap = br.build_ba_problem(r["tseqs"], r["tpairs"],
+                                          r["tchain"])
+    assert cmap == jmap
+    for name in ("cam_idx", "pt_idx", "pt_obs", "pt_obs_mask", "cam_of",
+                 "fixed_cams", "mask", "uv", "uv_g", "K"):
+        np.testing.assert_array_equal(getattr(prob, name).numpy(),
+                                      np.asarray(getattr(jprob, name)), name)
+    for g, w in zip(st0, jst0):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5)
+    print(f"BA problem: {len(cmap)} cameras, {len(st0.points)} tracks, "
+          f"{int(prob.mask.sum())} observations")
+
+
+def test_refit_similarities_matches_jax(jax_ba_inputs):
+    """Both re-fit the same refined cameras (JAX's solve) into the chain."""
+    r = jax_ba_inputs
+    jprob, jst0, jmap = jbr.build_ba_problem(r["jseqs"], r["jpairs"],
+                                             r["jchain"])
+    jst, _ = j_solve_ba(jprob, jst0, iters=30)
+    want = jbr.refit_similarities(r["jseqs"], r["jchain"], jst, jmap)
+    got = br.refit_similarities(r["tseqs"], r["tchain"], ba_state_from_numpy(
+        *(np.asarray(x) for x in jst), device="cpu"), jmap)
+    for T, J in zip(got, want):
+        assert abs(float(T.s) - float(J.s)) <= 1e-4
+        np.testing.assert_allclose(T.R.numpy(), np.asarray(J.R), atol=1e-4)
+        np.testing.assert_allclose(T.t.numpy(), np.asarray(J.t), atol=1e-4)
 
 
 def test_turned_ring_recovers_gt_through_run_align(tmp_path):
@@ -203,12 +269,46 @@ def test_cli_runs_the_paths_ported_since(tmp_path, extra, capsys):
 @pytest.mark.parametrize("extra", [
     ["--refine"], ["--refine", "ba"], ["--debug-artifacts"]])
 def test_cli_refuses_paths_not_ported(tmp_path, extra, capsys, cmd):
+    """The paths this test used to see refused now run: the pose graph
+    (refine_s), bundle adjustment (refine_s) and the match dumps
+    (<workdir>/Match), in align and in pipeline."""
     from multiviewstitch_tpu_torch.cli import main
-    args = [cmd, "--device", "cpu", "--workdir", str(tmp_path), "--demo"]
-    assert main(args + extra) == 2
-    assert "not ported" in capsys.readouterr().out
-    assert not (tmp_path / "Result" / "SRT.txt").exists()
-    assert not (tmp_path / "Result" / "deform.obj").exists()
+    args = [cmd, "--device", "cpu", "--workdir", str(tmp_path), "--demo",
+            "--grid", "32"] + (["--passes", "1"] if cmd == "pipeline" else [])
+    stages = []
+    assert main(args + extra,
+                stage=lambda n, fn: stages.append(n) or fn()) == 0
+    out = capsys.readouterr().out
+    assert "not ported" not in out
+    Ts = load_srt(str(tmp_path / "Result" / "SRT.txt"))
+    assert abs(float(Ts[0].s) - 1.25) < 0.1
+    assert ("refine_s" in stages) == (extra[0] == "--refine")
+    if extra[0] == "--refine":
+        key = "ba_rmse_px" if extra[1:] else "pose_graph_rmse"
+        assert key in out
+    match = tmp_path / "Match"
+    assert (len(os.listdir(match)) == 1) if extra == ["--debug-artifacts"] \
+        else not match.exists()
+    assert (tmp_path / "Result" / "deform.obj").exists() == \
+        (cmd == "pipeline")
+
+
+def test_cli_refine_invalidates_the_align_manifest(tmp_path, capsys):
+    """A --refine ba run after a plain run recomputes (the manifest hash
+    covers --refine, as the JAX CLI's does); a repeat of it skips."""
+    from multiviewstitch_tpu_torch.cli import main
+    args = ["align", "--device", "cpu", "--workdir", str(tmp_path), "--demo",
+            "--grid", "32"]
+    runs = []
+    for extra in ([], [], ["--refine", "ba"], ["--refine", "ba"]):
+        stages = []
+        assert main(args + extra,
+                    stage=lambda n, fn: stages.append(n) or fn()) == 0
+        runs.append((stages, "up to date" in capsys.readouterr().out))
+    assert runs[0][0] and not runs[0][1]
+    assert runs[1] == ([], True)
+    assert "refine_s" in runs[2][0] and not runs[2][1]
+    assert runs[3] == ([], True)
 
 
 @pytest.mark.parametrize("cmd", ["bench"])

@@ -1,5 +1,7 @@
 """The hand-written CUDA kernels K1-K3 against their plain PyTorch versions
-on the card. Every test here needs an NVIDIA GPU with nvcc and skips
+on the card, and the plain-PyTorch stages around them (deform, depth
+refine, bundle adjustment, the pose graph, the refined demo align) on the
+card against the CPU. Every test here needs an NVIDIA GPU with nvcc and skips
 without one. The file imports no jax, so the card runs it without the
 JAX package (tests/conftest.py imports jax, hence --noconftest):
 
@@ -596,3 +598,133 @@ def test_render_stage_cuda_matches_cpu_bit_for_bit(cuda, tmp_path):
     assert (want > 0).float().mean() > 0.02
     assert torch.equal(got.cpu(), want)
     assert len(list((tmp_path / "DATA" / "Render").glob("*.raw"))) == 6
+
+
+def _synth_ba(n_cams=8, n_pts=512, seed=0):
+    """Cameras on an arc, every camera seeing every point, 0.5 px noise,
+    a perturbed start; the first and last cameras fixed at their true
+    poses (the scale is then no free direction, so two devices' states
+    compare)."""
+    from multiviewstitch_tpu_torch.solvers import ba
+    rng = np.random.default_rng(seed)
+    K = np.array([[400.0, 0, 320.0], [0, 400.0, 240.0], [0, 0, 1]],
+                 np.float32)
+    pts = rng.uniform(-0.8, 0.8, size=(n_pts, 3)).astype(np.float32)
+    pts[:, 2] += 5.0
+    rvec = np.stack([[0.0, (i - n_cams / 2) * 0.04, 0.0]
+                     for i in range(n_cams)]).astype(np.float32)
+    tvec = np.stack([[0.1 * i, 0.0, 0.0]
+                     for i in range(n_cams)]).astype(np.float32)
+    cam_idx = np.repeat(np.arange(n_cams), n_pts)
+    pt_idx = np.tile(np.arange(n_pts), n_cams)
+    R = ba.rodrigues(torch.as_tensor(rvec)).numpy()
+    pc = np.einsum("cij,pj->cpi", R, pts) + tvec[:, None]
+    uv = np.stack([K[0, 0] * pc[..., 0] / pc[..., 2] + K[0, 2],
+                   K[1, 1] * pc[..., 1] / pc[..., 2] + K[1, 2]], -1)
+    uv = uv[cam_idx, pt_idx] + rng.normal(size=(len(cam_idx), 2)) * 0.5
+    st = [a + rng.normal(size=a.shape).astype(np.float32) * m
+          for a, m in ((rvec, 0.01), (tvec, 0.03), (pts, 0.02))]
+    for a, true in zip(st[:2], (rvec, tvec)):        # the fixed cameras
+        a[[0, -1]] = true[[0, -1]]
+    return K, cam_idx, pt_idx, uv, n_pts, n_cams, st
+
+
+def test_solve_ba_cuda_matches_cpu_without_host_sync(cuda):
+    """20 LM iterations on the card against the CPU: RMSE within 1e-4 px,
+    each state array within 1e-4 of its largest magnitude (the points sit
+    at z ~ 5, where float32 sums in another order part by ~3e-4 after 20
+    iterations); no host read inside the LM loop."""
+    import warnings
+    from multiviewstitch_tpu_torch.solvers import ba
+    K, ci, pi, uv, n_pts, n_cams, st = _synth_ba()
+    out = {}
+    for dev in ("cpu", cuda):
+        prob = ba.make_problem(K, ci, pi, uv, n_pts, n_cams=n_cams,
+                               fixed_cams=[0, n_cams - 1], device=dev)
+        s0 = ba.BAState(*(torch.as_tensor(a, device=dev) for a in st))
+        if dev == "cpu":
+            out[dev] = ba.solve_ba(prob, s0, iters=20)
+            continue
+        best = ba.reprojection_rmse(prob, s0)
+        lam = torch.full((), 1e-3, device=cuda)
+        ba.lm_step(prob, s0, best, lam)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                s = s0
+                for _ in range(20):
+                    s, best, lam = ba.lm_step(prob, s, best, lam)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = [str(c.message) for c in caught
+                 if "synchroniz" in str(c.message)]
+        assert syncs == []
+        out["cuda"] = (s, float(best))
+    (sc, rc), (sg, rg) = out["cpu"], out["cuda"]
+    assert rc < 1.0 and abs(rc - rg) <= 1e-4
+    for a, b in zip(sg, sc):
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+def test_refine_pose_graph_cuda_matches_cpu(cuda):
+    """Three sequences, consecutive and skip edges, 1 mm match noise, a
+    perturbed chain: the card's refinement within 1e-4 of the CPU's."""
+    from multiviewstitch_tpu_torch.core.transforms import (Similarity,
+                                                           apply_points,
+                                                           inverse)
+    from multiviewstitch_tpu_torch.solvers import pose_graph as pg
+    from multiviewstitch_tpu_torch.solvers.ba import rodrigues
+    rng = np.random.default_rng(0)
+
+    def sim(s, r, t):
+        return Similarity(torch.tensor(s, dtype=torch.float32),
+                          rodrigues(torch.tensor(r, dtype=torch.float32)),
+                          torch.tensor(t, dtype=torch.float32))
+    gt = [sim(1.15, [0.1, 0.3, -0.2], [0.2, -0.1, 0.3]),
+          sim(1.3, [-0.2, 0.1, 0.15], [-0.1, 0.2, 0.1]),
+          Similarity.identity(device="cpu")]
+    world = torch.as_tensor(rng.normal(size=(400, 3)).astype(np.float32))
+    pairs = []
+    for k, l in ((0, 1), (1, 2), (0, 2)):
+        w = world[rng.choice(400, 80, replace=False)]
+        q = apply_points(inverse(gt[l]), w).numpy()
+        pairs.append((k, l, apply_points(inverse(gt[k]), w).numpy(),
+                      q + rng.normal(size=q.shape).astype(np.float32) * 1e-3,
+                      np.ones(80, bool)))
+    init = [sim(float(T.s) * 1.03, [0.02, -0.01, 0.03], [0, 0, 0])
+            for T in gt[:2]]
+    init = [Similarity(a.s, a.R @ T.R, T.t + 0.02)
+            for a, T in zip(init, gt[:2])] + [gt[2]]
+    got, rg = pg.refine_pose_graph(init, pg.build_data(pairs, 128,
+                                                       device=cuda))
+    want, rc = pg.refine_pose_graph(init, pg.build_data(pairs, 128,
+                                                        device="cpu"))
+    assert rc < 0.01 and abs(rg - rc) <= 1e-4
+    for a, b in zip(got, want):
+        for x, y in zip((a.s, a.R, a.t), (b.s, b.R, b.t)):
+            torch.testing.assert_close(x, y, atol=1e-4, rtol=0)
+
+
+def test_align_refine_ba_on_the_demo_cuda(cuda, tmp_path):
+    """align --demo --refine ba --device cuda recovers the demo similarity
+    (test_e2e_align's bounds), with K1 and K2 launched."""
+    from multiviewstitch_tpu_torch.cli import main
+    from multiviewstitch_tpu_torch.core.transforms import rotation_angle_deg
+    from multiviewstitch_tpu_torch.io.srt import load_srt
+    kernels.reset_launch_counts()
+    stages = []
+    assert main(["align", "--demo", "--refine", "ba", "--device", "cuda",
+                 "--workdir", str(tmp_path)],
+                stage=lambda n, fn: stages.append(n) or fn()) == 0
+    counts = kernels.launch_counts()
+    assert counts["consistency"] > 0 and counts["oriented_points"] > 0
+    assert "refine_s" in stages
+    T = load_srt(str(tmp_path / "Result" / "SRT.txt"))[0]
+    R = np.array([[0.9689124, 0.0, 0.24740396], [0.0, 1.0, 0.0],
+                  [-0.24740396, 0.0, 0.9689124]])
+    assert abs(float(T.s) - 1.25) <= 0.05 * 1.25
+    assert rotation_angle_deg(T.R, R) < 3.0
+    assert np.linalg.norm(T.t.numpy() - [0.1, -0.05, 0.15]) < 0.08

@@ -25,7 +25,9 @@ assert "multiviewstitch_tpu_torch.cli" in names, names
 assert "multiviewstitch_tpu_torch.kernels" in names, names
 for mod in ("ops.mesh_normals", "ops.depth_refine", "solvers.pca",
             "solvers.alignment", "solvers.deformation", "models.parts",
-            "models.template_body", "pipeline.deform_render"):
+            "models.template_body", "pipeline.deform_render", "solvers.ba",
+            "solvers.pose_graph", "pipeline.ba_refine",
+            "utils.debug_artifacts", "utils.debug_mode", "utils.metrics"):
     assert "multiviewstitch_tpu_torch." + mod in names, mod
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax."))
 ref = sorted(k for k in sys.modules if k == "multiviewstitch_tpu" or

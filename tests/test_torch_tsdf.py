@@ -96,3 +96,21 @@ def test_fuse_multi_sequence_matches_jax(scene):
     assert len(jv) > 50
     assert abs(len(tv) - len(jv)) <= 0.01 * len(jv)
     assert abs(len(tf) - len(jf)) <= 0.01 * len(jf)
+
+
+def test_fuse_multi_sequence_keeps_every_vertex_past_the_jax_caps():
+    """A full ring of 8 frames around the bumpy sphere at grid 160: the
+    surface has more than the JAX package's 65,536 vertices, and
+    fuse_multi_sequence returns all of them and every face."""
+    from multiviewstitch_tpu_torch.core.transforms import Similarity
+    from multiviewstitch_tpu_torch.pipeline.fixtures import make_scene
+    sc = make_scene(n_frames=8, width=160, height=120, bumps=0.12,
+                    arc_deg=360.0, device="cpu")
+    v, f, ts = tt.fuse_multi_sequence(
+        [sc.disparity], [sc.cams], [Similarity.identity(device="cpu")],
+        grid=160, min_dsp=1e-3, max_dsp=10.0)
+    whole = tt.surface_nets(ts, max_vertices=None, max_faces=None)
+    print(f"full ring at grid 160: {len(v)} vertices, {len(f)} faces")
+    assert len(v) == whole.num_vertices > 65536
+    assert len(f) == whole.num_faces > 131072
+    assert f.min() >= 0 and f.max() == len(v) - 1
