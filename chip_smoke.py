@@ -6,14 +6,16 @@ Needs one NVIDIA GPU, nvcc and this repository's sources; imports no jax.
 Phases, in order (any failure raises and the exit code is non-zero):
   1. device: the card's name and power limit (nvidia-smi)
   2. build: one nvcc per csrc/*.cu source, all started together, into
-     the git-ignored kernel directory
+     the git-ignored kernel directory; g++ builds the native IO library
+     (csrc/mvs_io.cpp) that the ingest reads raw depth through
   3. kernels: K1 (consistency), K2 (the oriented point sampler) and K3
      (raster), each against its plain PyTorch version on the card. K1 and
      K2 at three sizes of the sphere scene (640x480): config-2 (5 frames,
      nbr_num 1), the front-end (8 frames, bench.py's settings, nbr_num 2)
      and a long sequence (64 frames on the 45-degree arc, the reference's
      default settings, nbr_num 5; 78.6 MB of disparity, more than L2); K1
-     bit-identical, K2's points bit-identical, conf and the keep mask
+     bit-identical (at 64 frames also at offsets -2, -1, 1, 2), K2's
+     points bit-identical, conf and the keep mask
      equal on >= 99.99 % of samples, normals within 1e-6 on >= 99.99 % of
      the samples both keep. K3 bit-identical on six cases (the config-2
      sphere, a ~100k-face sphere, two close-up giant faces, a close-up
@@ -56,7 +58,8 @@ Phases, in order (any failure raises and the exit code is non-zero):
      the ground truth, PSR.npts, Model.obj's vertex RMSE to the true
      surface, the ten per-frame meshes and that K1 and K2 launched; logs
      per-stage synced wall times, the Poisson stage's peak device memory,
-     the grid and the mesh sizes; the depth-10 run's Poisson stage runs
+     the grid and the mesh sizes; the ingest must read the raw depth
+     through the native library; the depth-10 run's Poisson stage runs
      under torch.profiler (device busy share, and each step's host span
      and device time from the ``poisson.*`` record_function ranges);
      then a warm pass at psn_dpt_max 8 (256^3, whole-grid extraction);
@@ -95,6 +98,21 @@ Phases, in order (any failure raises and the exit code is non-zero):
      the card (final RMSE < 1.0 px), held against the CPU after 5
      iterations (state within 1e-3); logs ms per LM iteration (CUDA
      events, median), the peak device memory and the device-busy share
+ 10. parallel, the multi-device layer at NCCL world size 1 (one card: the
+     tests hold 2 to 4 gloo ranks): make_mesh() (NCCL, a file:// store);
+     the windowed filter on the 64-frame VGA sequence at halo 1 and 2,
+     bit-identical to check_consistency at +-1..+-halo, K1 launched once
+     through it; config-5 at full width (2 x 32 VGA frames on a 120-degree
+     arc, the second moved by s 1.15, 10 degrees, t (0.1, -0.05, 0.15);
+     config-2's knobs with iter_num 64: 1,024 edges) through
+     align_sequences(mesh=), identical to the unsharded run, within s 8 %
+     and 4 degrees, then the fuse, K1-K3 launched from zeroed counts (stage
+     times, peak memory, the sweep's busy share under utils.profiling.trace,
+     device_time, compiled_flops of a 512^2 matmul); refine="ba" through the
+     mesh on phase 4's turned arc (within 1e-3 of the unsharded
+     refinement); solve_ba_sharded at phase 9's shape (ms per LM iteration
+     beside phase 9's, state within 1e-3 of solve_ba after 5); both ARAP
+     layouts on phase 8's body ARAP problem (within 5e-3 of arap_solve)
 The line before the last holds the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -202,11 +220,17 @@ def phase_device():
 
 
 def phase_build():
+    from multiviewstitch_tpu_torch.io import native_loader
     t0 = time.perf_counter()
     path = _build.build(verbose=True)
     _build.load()
     log(f"build: {path} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {'ran' if _build.build_seconds else 'cached'})")
+    t0 = time.perf_counter()          # the ingest's reader, built here so
+    ok = native_loader.native_available()       # ingest_s is all reading
+    log(f"build: native IO {native_loader.library_path()} in "
+        f"{time.perf_counter() - t0:.2f} s")
+    assert ok, "the native IO library did not build"
 
 
 def config2_sequences(dev, arc_center_deg=0.0):
@@ -249,14 +273,15 @@ def existing_neighbours(n, offsets):
     return sum(((f + o >= 0) & (f + o < n)).long() for o in offsets)
 
 
-def k1_bound(d):
+def k1_bound(d, offsets=(-1, 1)):
     """K1 reads and writes each disparity once (plus the cameras); per valid
     pixel 25 flops (1/d, unprojection) and per existing neighbour 88 (two
     projections of 25, an unprojection of 24 and 1/d, two roundings of 4,
-    the error test of 5): csrc/consistency.cu."""
+    the error test of 5): csrc/consistency.cu. The neighbours' gathers hit
+    L2 and count no bytes."""
     n, h, w = d.shape
     valid = ((d >= CFG.min_dsp) & (d <= CFG.max_dsp)).flatten(1).sum(1).cpu()
-    pairs = int((valid * existing_neighbours(n, (-1, 1))).sum())
+    pairs = int((valid * existing_neighbours(n, offsets)).sum())
     return bound(8 * n * h * w + 84 * n, 25 * int(valid.sum()) + 88 * pairs)
 
 
@@ -366,6 +391,28 @@ def k12_case(name, d, cams, sk):
     return k1, k2
 
 
+# phase 3's K1 offsets case (the windowed filter's at halo 2)
+K1_OFFSETS = (-2, -1, 1, 2)
+
+
+def k1_offsets_case(name, d, cams):
+    """K1 at K1_OFFSETS against its plain version: bit-identical, with
+    kernel and plain ms, device us and the bound."""
+    from multiviewstitch_tpu_torch.ops import consistency as tc
+    kw = dict(K1_KW, offsets=K1_OFFSETS)
+    got = tc.check_consistency(d, cams, **kw)
+    ref = tc.check_consistency_reference(d, cams, **kw)
+    assert torch.equal(got, ref), \
+        f"K1 {name} offsets {K1_OFFSETS}: {int((got != ref).sum())} differ"
+    log(f"K1 consistency, {name} {tuple(d.shape)} at offsets {K1_OFFSETS}: "
+        f"bit-identical, kept {int((ref > 0).sum())} of "
+        f"{int((d > 0).sum())} valid pixels")
+    timed_record(f"K1 {name} offsets {K1_OFFSETS}",
+                 lambda: tc.check_consistency(d, cams, **kw),
+                 lambda: tc.check_consistency_reference(d, cams, **kw),
+                 *k1_bound(d, K1_OFFSETS))
+
+
 def phase_kernels(dev):
     """Each kernel against its plain version at the main path's shapes."""
     from multiviewstitch_tpu_torch.pipeline.fixtures import (make_scene,
@@ -384,6 +431,8 @@ def phase_kernels(dev):
                             n_lat=64, n_lon=96, arc_deg=45.0, device=dev)
             d, cams = sc.disparity, sc.cams
         k1, k2 = k12_case(name, d, cams, sk)
+        if name == "long sequence":
+            k1_offsets_case(name, d, cams)
         if name == "config-2":        # the main path's shapes
             rec["consistency"], rec["oriented_points"] = k1, k2
         del d, cams
@@ -860,15 +909,21 @@ def log_poisson_profile(prof, wall, depth):
 def phase_config(dev):
     """``align --config`` on the reference's on-disk layout with Poisson
     at the default depth 10, segment, AllSeqProj and per-frame meshes."""
+    from multiviewstitch_tpu_torch.io import native_loader
     with tempfile.TemporaryDirectory() as root:
         config, gt, moved = write_config_layout(dev, root)
         wd = os.path.join(root, "work10")
         kernels.reset_launch_counts()
+        native_loader.reset_read_counts()
         t, outs, prof = config_run(dev, config, wd, CONFIG_DEPTHS[0],
                                    profile_poisson=True)
         torch.cuda.synchronize()
         launches = kernels.launch_counts()
-        log(f"launches during the config run: {launches}")
+        reads = native_loader.read_counts()
+        log(f"launches during the config run: {launches}; raw depth batches "
+            f"read by the ingest: {reads}")
+        assert reads == {"native": 2, "numpy": 0}, \
+            f"ingest did not read through the native library: {reads}"
         n_v, _ = check_config_run("PsnDptMax 10 (Poisson 1024^3; poisson_s "
                                   "profiled)", dev, wd, gt, moved, t)
         n_exact = exact_largest_component(*outs["all_seq_proj_s"][:2])
@@ -1047,7 +1102,8 @@ def log_deform_steps(dev, verts, faces, sv, sf):
     """CUDA-event times of a deform pass's two device steps at the body's
     shapes: the [C,T] correspondence search of the template's controls in
     the scan, and the 5-iteration ARAP solve (dense Cholesky path); and
-    the synced wall time of the rigid alignment's ground removal."""
+    the synced wall time of the rigid alignment's ground removal. Returns
+    the ARAP problem (phase 10 solves it sharded)."""
     from multiviewstitch_tpu_torch.ops.mesh_normals import vertex_normals
     from multiviewstitch_tpu_torch.solvers import deformation as D
     from multiviewstitch_tpu_torch.solvers.alignment import remove_ground
@@ -1088,12 +1144,13 @@ def log_deform_steps(dev, verts, faces, sv, sf):
         f"{t['remove_ground_s']:.4f} s ({len(sv)} -> {len(g.points)} "
         f"vertices), the host largest-component pass over the whole scan "
         f"{t['largest_component_s']:.4f} s")
+    return prob
 
 
 def phase_body(dev):
     """The reference's second mode on the body scan: deform and render on
     the card, deform on the CPU, the control render and the config-3
-    loop."""
+    loop. Returns the body's ARAP problem."""
     import shutil
     from multiviewstitch_tpu_torch.cli import main
     from multiviewstitch_tpu_torch.core.transforms import Similarity
@@ -1119,7 +1176,7 @@ def phase_body(dev):
         log("    top device events: " + top_device_events(prof))
         assert len(v) == len(tv), (len(v), len(tv))
         assert fit < 0.06, f"body deform: fit RMS to the scan {fit}"
-        log_deform_steps(dev, v, tf, sv, sf)
+        arap_prob = log_deform_steps(dev, v, tf, sv, sf)
 
         wd_cpu = os.path.join(root, "work_cpu")
         shutil.copytree(os.path.join(wd, "Result"),
@@ -1162,6 +1219,7 @@ def phase_body(dev):
                 f"{m['measured_overlap']:.4f}")
         assert m["measured_overlap"] > 0.9, m
     phase_config3_loop(dev)
+    return arap_prob
 
 
 def config3_scene(dev):
@@ -1267,7 +1325,7 @@ def synth_ba(dev, n_cams=BA_CAMS, n_pts=BA_POINTS, seed=0):
 def phase_ba(dev):
     """solve_ba at 64 cameras x 16,384 points on the card: ms per LM
     iteration, peak memory, device-busy share; the card against the CPU
-    after BA_CPU_ITERS iterations."""
+    after BA_CPU_ITERS iterations. Returns the median ms per iteration."""
     from torch.profiler import ProfilerActivity, profile
     from multiviewstitch_tpu_torch.solvers import ba
     torch.cuda.synchronize()
@@ -1328,6 +1386,265 @@ def phase_ba(dev):
         f"{t_cpu:.3f} s for {BA_CPU_ITERS} iterations")
     assert rmse < 1.0, f"BA: final RMSE {rmse} px"
     assert gap <= BA_STATE_GAP_MAX, f"BA card vs CPU: {gap}"
+    return statistics.median(ms)
+
+
+# phase 10: the multi-device layer at NCCL world size 1 (one card)
+C5_FRAMES, C5_ARC_DEG = 32, 120.0
+C5_CFG = CFG.replace(iter_num=64)             # config-2's knobs
+C5_LIMITS = (0.08, 4.0)          # tests/test_view_windows.py:116-119
+REFINE_GAP_MAX = 1e-3
+ARAP_GAP_MAX = 5e-3              # tests/test_parallel.py:133-134
+
+
+def config5_transform():
+    """tests/test_view_windows.py's config-5 similarity: s 1.15, 10 degrees
+    about +y, t (0.1, -0.05, 0.15)."""
+    from multiviewstitch_tpu_torch.core.transforms import Similarity
+    c, s = 0.9848, 0.1736
+    return Similarity(torch.tensor(1.15), torch.tensor(
+        [[c, 0.0, s], [0.0, 1.0, 0.0], [-s, 0.0, c]]),
+        torch.tensor([0.1, -0.05, 0.15]))
+
+
+def config5_sequences(dev):
+    """Two sequences of 32 VGA frames on a 120-degree arc, the second moved
+    by config5_transform (bench/scaling.py:266-276 at the card's width)."""
+    from multiviewstitch_tpu_torch.pipeline.align_seq import Sequence
+    from multiviewstitch_tpu_torch.pipeline.fixtures import (make_scene,
+                                                             textured_views)
+    kw = dict(n_frames=C5_FRAMES, width=W, height=H, bumps=0.15, n_lat=48,
+              n_lon=64, arc_deg=C5_ARC_DEG, device=dev)
+    scenes = [make_scene(**kw),
+              make_scene(transform=config5_transform(), **kw)]
+    return [Sequence(textured_views(sc), sc.disparity, sc.cams)
+            for sc in scenes]
+
+
+def same_result(a, b):
+    """Whether two AlignResults hold identical transforms and keyframes."""
+    return a.keyframes == b.keyframes and all(
+        torch.equal(x, y) for Ta, Tb in zip(a.transforms, b.transforms)
+        for x, y in ((Ta.s, Tb.s), (Ta.R, Tb.R), (Ta.t, Tb.t)))
+
+
+def max_transform_gap(a, b):
+    return max(float((x - y).abs().max())
+               for Ta, Tb in zip(a.transforms, b.transforms)
+               for x, y in ((Ta.s, Tb.s), (Ta.R, Tb.R), (Ta.t, Tb.t)))
+
+
+def phase_windowed(dev, mesh):
+    """10b: the windowed filter on phase 3's 64-frame VGA sequence at halo
+    1 and 2, bit-identical to check_consistency at +-1..+-halo, K1 launched
+    through the windowed path."""
+    from multiviewstitch_tpu_torch.ops import consistency as tc
+    from multiviewstitch_tpu_torch.parallel.view_windows import (
+        check_consistency_windowed)
+    from multiviewstitch_tpu_torch.pipeline.fixtures import make_scene
+    sc = make_scene(n_frames=64, width=W, height=H, bumps=0.15, n_lat=64,
+                    n_lon=96, arc_deg=45.0, device=dev)
+    d, cams = sc.disparity, sc.cams
+    for halo in (1, 2):
+        offs = tuple(o for o in range(-halo, halo + 1) if o)
+        kernels.reset_launch_counts()
+        got = check_consistency_windowed(d, cams, mesh=mesh, halo=halo,
+                                         **K1_KW)
+        torch.cuda.synchronize()
+        n_k1 = kernels.launch_counts()["consistency"]
+        want = tc.check_consistency(d, cams, offsets=offs, **K1_KW)
+        plain = tc.check_consistency_reference(d, cams, offsets=offs, **K1_KW)
+        assert n_k1 == 1, f"windowed filter, halo {halo}: K1 launched {n_k1}"
+        assert torch.equal(got, want) and torch.equal(got, plain), \
+            f"windowed filter, halo {halo}: {int((got != plain).sum())} differ"
+        ms = time_ms(lambda: check_consistency_windowed(
+            d, cams, mesh=mesh, halo=halo, **K1_KW))
+        log(f"parallel windowed filter, 64x{H}x{W}, halo {halo}: "
+            f"bit-identical to check_consistency(offsets={offs}) and its "
+            f"plain version, K1 launched once, kept {int((got > 0).sum())} "
+            f"of {int((d > 0).sum())}; {ms:.4f} ms (CUDA events, median of "
+            f"20, halo exchange + K1)")
+    del d, cams, sc
+    torch.cuda.empty_cache()
+
+
+def phase_config5(dev, mesh):
+    """10c, 10g: config-5 at full width through align_sequences(mesh=)
+    against the unsharded run, then the fuse; per-stage synced times, the
+    device-busy share, the peak memory; utils.profiling on the sweep."""
+    from multiviewstitch_tpu_torch.core.transforms import rotation_angle_deg
+    from multiviewstitch_tpu_torch.parallel.match_dist import (
+        match_edges_sharded)
+    from multiviewstitch_tpu_torch.pipeline.align_seq import (
+        align_sequences, fuse_sequences, pair_key)
+    from multiviewstitch_tpu_torch.pipeline.match_edges import (edge_knobs,
+                                                                prep_sequence)
+    from multiviewstitch_tpu_torch.utils import profiling
+    gt = config5_transform()
+    ref = align_sequences(config5_sequences(dev), C5_CFG)    # also warm-up
+    t = {}
+    timed = synced_timer(t)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    seqs = timed("render_s", lambda: config5_sequences(dev))
+    preps = timed("prep_s", lambda: [prep_sequence(s, C5_CFG) for s in seqs])
+    res = align_sequences(seqs, C5_CFG, preps=preps, mesh=mesh, stage=timed)
+    pts, nrm = timed("fuse_s", lambda: fuse_sequences(seqs, res, C5_CFG))
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    T = res.transforms[0]
+    s_err = abs(float(T.s) - float(gt.s)) / float(gt.s)
+    ang = rotation_angle_deg(T.R, gt.R)
+    n_edges = C5_FRAMES * C5_FRAMES
+    log(f"parallel config-5 (2 x {C5_FRAMES} frames at {W}x{H}, "
+        f"{n_edges} edges, max_keypoints {C5_CFG.max_keypoints}, iter_num "
+        f"{C5_CFG.iter_num}; NCCL world size {mesh.size}): s {float(T.s):.5f} "
+        f"(gt 1.15, error {s_err:.5f}), rotation error {ang:.4f} deg, "
+        f"keyframes {res.keyframes}, residual {res.residuals[0]:.5f}; "
+        f"identical to the unsharded run: {same_result(res, ref)}; fused "
+        f"{len(pts)} points; launches {launches}; peak device memory "
+        f"{peak:.3f} GB")
+    log("parallel config-5 stage wall times (synced): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in t.items()))
+    assert same_result(res, ref), "config-5: sharded != unsharded"
+    assert s_err < C5_LIMITS[0] and ang < C5_LIMITS[1], (s_err, ang)
+    for k in kernels.KERNELS:
+        assert launches[k] > 0, f"config-5: {k} was not launched"
+    assert len(pts) > 2000 and np.isfinite(pts).all() and \
+        np.isfinite(nrm).all()
+
+    key, knobs = pair_key(0, 0, 1, 2), edge_knobs(C5_CFG)
+    with tempfile.TemporaryDirectory() as logdir:
+        with profiling.trace(logdir) as prof:
+            t0 = time.perf_counter()
+            match_edges_sharded(*preps, key, mesh=mesh, **knobs)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        size = os.path.getsize(os.path.join(logdir, profiling.TRACE_FILE))
+    busy, n_ev = device_busy_us(prof)
+    assert size > 0 and busy > 0, (size, busy)
+    best = profiling.device_time(
+        lambda: match_edges_sharded(*preps, key, mesh=mesh, **knobs), reps=3)
+    a = torch.randn(512, 512, device=dev)
+    flops = profiling.compiled_flops(torch.matmul, a, a)
+    log(f"parallel config-5 sweep (match_edges_sharded, {n_edges} edges) "
+        f"under utils.profiling.trace: wall {wall:.4f} s (profiled), device "
+        f"busy {busy / 1e6:.4f} s ({100 * busy / 1e6 / wall:.1f} %), {n_ev} "
+        f"device events, Chrome trace {size} bytes; device_time best of 3 "
+        f"{best:.4f} s; compiled_flops(512^2 matmul) {flops:.0f}")
+    log("    top device events: " + top_device_events(prof))
+    assert flops == 2 * 512 ** 3, flops
+
+
+def phase_parallel_ba(dev, mesh, ba_ms):
+    """10d, 10e: refine="ba" through the mesh on phase 4's turned arc, and
+    solve_ba_sharded at phase 9's shape."""
+    from multiviewstitch_tpu_torch.parallel import ba_dist
+    from multiviewstitch_tpu_torch.pipeline.align_seq import align_sequences
+    from multiviewstitch_tpu_torch.solvers import ba
+    seqs, gt, _, _ = config2_sequences(dev, ARC_CENTER_DEG)
+    ref = align_sequences(seqs, CFG, refine="ba")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = align_sequences(seqs, CFG, refine="ba", mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gap = max_transform_gap(res, ref)
+    m = res.metrics
+    log(f"parallel refine=ba, turned arc: metrics {m}; transforms vs the "
+        f"unsharded refinement max abs {gap:.3g} (bound {REFINE_GAP_MAX}); "
+        f"align {wall:.4f} s (synced)")
+    check_similarity("parallel refine=ba", res.transforms[0], gt, GT_S)
+    assert m["ba_rmse_px"] <= m["ba_rmse_init_px"], m
+    assert gap <= REFINE_GAP_MAX, gap
+
+    prob, st0 = synth_ba(dev)
+    blocks = ba_dist.BAPointBlocks(prob.K, prob.cam_of, prob.uv_g,
+                                   prob.pt_obs_mask, prob.fixed_cams)
+    blk = ba_dist.shard_problem(blocks, mesh)
+
+    def lm(iters, events=None):
+        st = ba_dist.shard_state(st0, mesh)
+        best = ba_dist.rmse_sharded(blk, st, mesh)
+        lam = torch.full((), 1e-3, device=dev)
+        for _ in range(iters):
+            if events is not None:
+                events.append(torch.cuda.Event(enable_timing=True))
+                events[-1].record()
+            st, best, lam = ba_dist.lm_step_sharded(blk, st, best, lam, mesh)
+        if events is not None:
+            events.append(torch.cuda.Event(enable_timing=True))
+            events[-1].record()
+        return st, best
+
+    st5, _ = lm(BA_CPU_ITERS)                      # also the warm-up
+    want, _ = ba.solve_ba(prob, st0, iters=BA_CPU_ITERS)
+    ev = []
+    _, best = lm(BA_ITERS, ev)
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in zip(ev[:-1], ev[1:])]
+    gap = max(float((a - b).abs().max()) for a, b in zip(st5, want))
+    log(f"parallel solve_ba_sharded, {BA_CAMS} x {BA_POINTS} on one NCCL "
+        f"rank: RMSE {float(best):.4f} px after {BA_ITERS} iterations; "
+        f"{statistics.median(ms):.3f} ms per LM iteration (CUDA events, "
+        f"median; phase 9's unsharded solve_ba {ba_ms:.3f}); state vs "
+        f"solve_ba after {BA_CPU_ITERS} iterations max abs {gap:.3g} "
+        f"(bound {BA_STATE_GAP_MAX})")
+    assert float(best) < 1.0
+    assert gap <= BA_STATE_GAP_MAX, gap
+
+
+def phase_parallel_arap(dev, mesh, prob):
+    """10f: both sharded ARAP layouts on phase 8's body ARAP problem."""
+    from multiviewstitch_tpu_torch.parallel import arap_blocks, arap_dist
+    from multiviewstitch_tpu_torch.solvers import deformation as D
+    want = D.arap_solve(prob)
+    e, w = arap_dist.pad_edges(prob.edges.cpu().numpy(),
+                               prob.weights.cpu().numpy(), mesh.size)
+    padded = prob._replace(edges=torch.as_tensor(e, device=dev),
+                           weights=torch.as_tensor(w, device=dev))
+    blocks = arap_blocks.build_blocks(
+        prob.rest.cpu().numpy(), prob.edges.cpu().numpy(),
+        prob.weights.cpu().numpy(), prob.constrained.cpu().numpy(),
+        prob.targets.cpu().numpy(), mesh.size)
+    for name, fn in (
+            ("arap_solve_sharded",
+             lambda: arap_dist.arap_solve_sharded(padded, mesh=mesh)),
+            ("arap_solve_blocks",
+             lambda: arap_blocks.arap_solve_blocks(blocks, mesh=mesh))):
+        got = fn()
+        gap = float((got - want).abs().max())
+        ms = time_ms(fn, reps=5)
+        log(f"parallel {name}, body ARAP ({prob.rest.shape[0]} vertices, "
+            f"{prob.edges.shape[0]} edges, 5 outer iterations): max abs vs "
+            f"arap_solve {gap:.3g} (bound {ARAP_GAP_MAX}); {ms:.3f} ms (CUDA "
+            f"events, median of 5)")
+        assert gap <= ARAP_GAP_MAX, f"{name}: {gap}"
+    log(f"parallel arap_blocks per-rank vertex state "
+        f"{arap_blocks.per_device_state_bytes(blocks)} bytes ({mesh.size} "
+        f"block)")
+
+
+def phase_parallel(dev, arap_prob, ba_ms):
+    """Phase 10: the multi-device layer on the card at NCCL world size 1
+    (one card: NCCL puts one rank on a GPU; the tests hold 2 and 4 ranks
+    with gloo on the CPU)."""
+    from multiviewstitch_tpu_torch.parallel.mesh import make_mesh
+    t0 = time.perf_counter()
+    mesh = make_mesh()
+    try:
+        log(f"parallel mesh: backend {mesh.backend}, world size {mesh.size}, "
+            f"device {mesh.device}, axis {mesh.shape} (make_mesh in "
+            f"{time.perf_counter() - t0:.3f} s)")
+        assert (mesh.backend, mesh.size) == ("nccl", 1)
+        phase_windowed(dev, mesh)
+        phase_config5(dev, mesh)
+        phase_parallel_ba(dev, mesh, ba_ms)
+        phase_parallel_arap(dev, mesh, arap_prob)
+    finally:
+        mesh.close()
+    log(f"phase 10 (parallel): {time.perf_counter() - t0:.2f} s")
 
 
 def main():
@@ -1340,8 +1657,9 @@ def main():
     phase_cli()
     phase_profile(dev)
     phase_config(dev)
-    phase_body(dev)
-    phase_ba(dev)
+    arap_prob = phase_body(dev)
+    ba_ms = phase_ba(dev)
+    phase_parallel(dev, arap_prob, ba_ms)
     out = []
     for k in kernels.KERNELS:
         src, replaces = SOURCES[k]

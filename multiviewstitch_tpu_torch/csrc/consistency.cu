@@ -9,6 +9,12 @@
 // the -1/+1 frames, round, gather, round trip, pixel-error test — runs in
 // registers with one disparity write.
 //
+// Neighbour frames: the offsets (default -1, +1; at most kMaxOffsets of
+// them, each within +-kMaxHalo frames) ride in the launch by value; the
+// block stages the 2*halo+1 cameras n-halo..n+halo (halo = max |offset|)
+// in shared memory. A neighbour outside the sequence casts no vote, and
+// the pixel survives only if every existing neighbour keeps it.
+//
 // Bound on the H100: bytes. The function reads each disparity once and
 // writes it once (8 B a pixel: 157 MB, 47 us at 3.35 TB/s for 64 VGA
 // frames); its float32 work is ~200 flops a valid pixel (one unprojection,
@@ -18,8 +24,8 @@
 // (frame = blockIdx.z, so no thread divides to find its pixel); each
 // thread takes 4 consecutive pixels with one 16-byte load and one 16-byte
 // store when the row width is a multiple of 4 (a scalar path otherwise).
-// The three cameras the block needs (frames n-1, n, n+1) are staged once
-// in shared memory. The neighbour gathers go through the read-only path
+// The cameras the block needs (frames n-halo..n+halo) are staged once in
+// shared memory. The neighbour gathers go through the read-only path
 // (__ldg); their targets lie near the pixel's own position, so they hit L2.
 //
 // Numerics: built with -fmad=false, in the operand order of common.cuh,
@@ -36,23 +42,36 @@ namespace {
 constexpr int kThreadsX = 32;
 constexpr int kThreadsY = 8;
 constexpr int kPix = 4;  // consecutive pixels a thread
+constexpr int kMaxOffsets = 8;
+constexpr int kMaxHalo = 16;
 
-// The filtered disparity of pixel (x, y) of frame n; cams[0..2] are frames
-// n-1, n and n+1.
+// The neighbour offsets, passed by value
+struct Offsets {
+  int n, halo;
+  int v[kMaxOffsets];
+};
+
+// The filtered disparity of pixel (x, y) of frame n; cams[k] is frame
+// n - halo + k.
 __device__ __forceinline__ float check_pixel(
     float d, int x, int y, int n, int n_frames, const float* __restrict__ disp,
-    size_t hw, int h, int w, const mvs::Cam* cams, float min_dsp,
-    float max_dsp, float err_sq) {
+    size_t hw, int h, int w, const mvs::Cam* cams, const Offsets& offs,
+    float min_dsp, float max_dsp, float err_sq) {
   bool keep = (d >= min_dsp) && (d <= max_dsp);
   if (!keep) return 0.0f;
-  const mvs::Cam& cam = cams[1];
+  const mvs::Cam& cam = cams[offs.halo];
   float fu = (float)x, fv = (float)y;
   float p[3];
   mvs::unproject(cam, fu, fv, 1.0f / d, p);
-  for (int off = -1; off <= 1 && keep; off += 2) {
+  // unrolled over the fixed maximum so that offs.v is indexed by
+  // constants: a runtime index would copy the struct to local memory
+#pragma unroll
+  for (int k = 0; k < kMaxOffsets; ++k) {
+    if (k >= offs.n || !keep) break;
+    const int off = offs.v[k];
     int m = n + off;
     if (m < 0 || m >= n_frames) continue;  // missing neighbour: no vote
-    const mvs::Cam& nc = cams[1 + off];
+    const mvs::Cam& nc = cams[offs.halo + off];
     float un, vn, zn;
     mvs::project(nc, p, &un, &vn, &zn);
     float ru = mvs::round_px(un), rv = mvs::round_px(vn);
@@ -83,16 +102,17 @@ __global__ void __launch_bounds__(kThreadsX* kThreadsY)
                        const float* __restrict__ K,
                        const float* __restrict__ R,
                        const float* __restrict__ t, float* __restrict__ out,
-                       int n_frames, int h, int w, float min_dsp,
-                       float max_dsp, float err_sq) {
-  __shared__ mvs::Cam cams[3];
+                       int n_frames, int h, int w, const Offsets offs,
+                       float min_dsp, float max_dsp, float err_sq) {
+  __shared__ mvs::Cam cams[2 * kMaxHalo + 1];
   const int n = blockIdx.z;
   const int tid = threadIdx.y * kThreadsX + threadIdx.x;
-  if (tid < 3 * mvs::kCamFields) {
-    const int m = n - 1 + tid / mvs::kCamFields;
+  for (int i = tid; i < (2 * offs.halo + 1) * mvs::kCamFields;
+       i += kThreadsX * kThreadsY) {
+    const int m = n - offs.halo + i / mvs::kCamFields;
     if (m >= 0 && m < n_frames)
-      reinterpret_cast<float*>(cams)[tid] =
-          mvs::cam_field(K, R, t, m, tid % mvs::kCamFields);
+      reinterpret_cast<float*>(cams)[i] =
+          mvs::cam_field(K, R, t, m, i % mvs::kCamFields);
   }
   __syncthreads();
 
@@ -113,7 +133,7 @@ __global__ void __launch_bounds__(kThreadsX* kThreadsY)
 #pragma unroll
   for (int i = 0; i < kPix; ++i)
     o[i] = check_pixel(d[i], x0 + i, y, n, n_frames, disp, hw, h, w, cams,
-                       min_dsp, max_dsp, err_sq);
+                       offs, min_dsp, max_dsp, err_sq);
   if (kVec) {
     *reinterpret_cast<float4*>(out + at) = make_float4(o[0], o[1], o[2], o[3]);
   } else {
@@ -125,10 +145,22 @@ __global__ void __launch_bounds__(kThreadsX* kThreadsY)
 
 }  // namespace
 
+// offsets: n_off host ints, 1 <= n_off <= kMaxOffsets, |offset| <= kMaxHalo
 extern "C" int mvs_consistency(const float* disp, const float* K,
                                const float* R, const float* t, float* out,
-                               int n_frames, int h, int w, float min_dsp,
-                               float max_dsp, float err_sq, void* stream) {
+                               int n_frames, int h, int w, const int* offsets,
+                               int n_off, float min_dsp, float max_dsp,
+                               float err_sq, void* stream) {
+  if (n_off < 1 || n_off > kMaxOffsets) return (int)cudaErrorInvalidValue;
+  Offsets offs;
+  offs.n = n_off;
+  offs.halo = 0;
+  for (int k = 0; k < kMaxOffsets; ++k) {
+    offs.v[k] = k < n_off ? offsets[k] : 0;
+    const int a = offs.v[k] < 0 ? -offs.v[k] : offs.v[k];
+    if (a > kMaxHalo) return (int)cudaErrorInvalidValue;
+    if (a > offs.halo) offs.halo = a;
+  }
   if (n_frames == 0 || h == 0 || w == 0) return 0;
   const dim3 block(kThreadsX, kThreadsY);
   const dim3 grid((w + kThreadsX * kPix - 1) / (kThreadsX * kPix),
@@ -137,10 +169,10 @@ extern "C" int mvs_consistency(const float* disp, const float* K,
       w % kPix == 0 && ((uintptr_t)disp | (uintptr_t)out) % 16 == 0;
   if (vec)
     consistency_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
-        disp, K, R, t, out, n_frames, h, w, min_dsp, max_dsp, err_sq);
+        disp, K, R, t, out, n_frames, h, w, offs, min_dsp, max_dsp, err_sq);
   else
     consistency_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-        disp, K, R, t, out, n_frames, h, w, min_dsp, max_dsp, err_sq);
+        disp, K, R, t, out, n_frames, h, w, offs, min_dsp, max_dsp, err_sq);
   return (int)cudaGetLastError();
 }
 

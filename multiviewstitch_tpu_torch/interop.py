@@ -1,10 +1,11 @@
 """numpy -> torch converters for the state the align path carries.
 
 The port has no learned weights: its state is cameras, similarities,
-sequences, match candidates and BA problems and, in mode 2, meshes with
-part labels. Callers holding arrays from elsewhere (for example the JAX
-package's objects, after ``np.asarray``) hand them over as numpy, so the
-port never sees a foreign array type.
+sequences, match candidates, BA problems (flat and point-grouped), ARAP
+block problems and, in mode 2, meshes with part labels. Callers holding
+arrays from elsewhere (for example the JAX package's objects, after
+``np.asarray``) hand them over as numpy, so the port never sees a foreign
+array type.
 """
 
 from __future__ import annotations
@@ -82,3 +83,29 @@ def ba_state_from_numpy(rvec, tvec, points, *, device) -> BAState:
     """rvec [C,3], tvec [C,3], points [P,3] -> BAState on ``device``."""
     return BAState(_f32(rvec, device), _f32(tvec, device),
                    _f32(points, device))
+
+
+def ba_blocks_from_numpy(K, cam_of, uv, mask, fixed_cams, *,
+                         device) -> "BAPointBlocks":
+    """The JAX BAPointBlocks' fields -> the port's BAPointBlocks on
+    ``device``."""
+    from .parallel.ba_dist import BAPointBlocks
+    return BAPointBlocks(_f32(K, device),
+                         torch.as_tensor(np.array(cam_of, np.int64),
+                                         device=device),
+                         _f32(uv, device),
+                         torch.as_tensor(np.array(mask, bool), device=device),
+                         torch.as_tensor(np.array(fixed_cams, bool),
+                                         device=device))
+
+
+def arap_blocks_from_numpy(rest, targets, constrained, edge_codes, weights,
+                           pub, n_vertices: int) -> "ARAPBlockProblem":
+    """The JAX ARAPBlockProblem's fields -> the port's ARAPBlockProblem
+    (host tensors: each rank moves its own block)."""
+    from .parallel.arap_blocks import ARAPBlockProblem
+    return ARAPBlockProblem(
+        _f32(rest, "cpu"), _f32(targets, "cpu"),
+        torch.as_tensor(np.array(constrained, bool)),
+        torch.as_tensor(np.array(edge_codes, np.int64)), _f32(weights, "cpu"),
+        torch.as_tensor(np.array(pub, np.int64)), int(n_vertices))

@@ -1,0 +1,188 @@
+"""ctypes bindings of the native IO library (``csrc/mvs_io.cpp``).
+
+The port's copy of ``multiviewstitch_tpu/io/native_loader.py``: threaded
+batch raw-depth reads (the reference loads every depth map serially on
+its main thread, Processor.cpp:35-40), npts / obj parsing and raw writes.
+At first use g++ builds the port's own copy of the source into the
+git-ignored ``_build/`` directory beside the package (keyed on the
+source, the flags and the host CPU's features). Where it cannot be built
+or loaded, every function takes its numpy counterpart, as the JAX
+package's do; ``native_available()`` says which, and ``read_counts()``
+counts the raw batches each reader served, so a run can show which one
+ran. Host IO only: no device kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import platform
+import subprocess
+import threading
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_SRC = os.path.join(_PKG, "csrc", "mvs_io.cpp")
+_BUILD_ROOT = os.path.join(_PKG, "_build")
+GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-pthread")
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+_tried = False
+_reads = {"native": 0, "numpy": 0}
+
+
+def _cpu_tag() -> bytes:
+    """The host CPU's feature flags (-march=native builds for them)."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            return next((ln for ln in f if ln.startswith(b"flags")), b"")
+    except OSError:
+        return platform.processor().encode()
+
+
+def library_path() -> str:
+    """The library's path, keyed on the source, the flags and the CPU."""
+    h = hashlib.sha256(" ".join(GXX_FLAGS).encode() + _cpu_tag())
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    return os.path.join(_BUILD_ROOT, "io-" + h.hexdigest()[:16],
+                        "libmvs_io.so")
+
+
+def _build() -> str:
+    """Compile the library if it is not there (to a temporary name, then
+    renamed, so a concurrent build never loads a partial file)."""
+    out = library_path()
+    if not os.path.exists(out):
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, _SRC], check=True,
+                       capture_output=True, timeout=120)
+        os.replace(tmp, out)
+    return out
+
+
+def _load_lib() -> Optional[ctypes.CDLL]:
+    global _lib, _tried
+    with _lock:
+        if _lib is not None or _tried:
+            return _lib
+        _tried = True
+        try:
+            lib = ctypes.CDLL(_build())
+        except (subprocess.SubprocessError, OSError):
+            return None
+        P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        for name, res, args in (
+                ("mvs_load_raw_batch", I, [P, I, I64, P, I]),
+                ("mvs_write_raw", I, [ctypes.c_char_p, P, I64]),
+                ("mvs_parse_npts", I64, [ctypes.c_char_p, P, I64]),
+                ("mvs_parse_obj_counts", I, [ctypes.c_char_p, P, P, P]),
+                ("mvs_parse_obj", I, [ctypes.c_char_p, P, P, P, I64, I64,
+                                      I64])):
+            fn = getattr(lib, name)
+            fn.restype = res
+            fn.argtypes = args
+        _lib = lib
+        return _lib
+
+
+def native_available() -> bool:
+    """Whether the native library built and loaded."""
+    return _load_lib() is not None
+
+
+def read_counts() -> dict:
+    """Raw batches read by each reader ("native", "numpy") since the last
+    reset (a copy)."""
+    with _lock:
+        return dict(_reads)
+
+
+def reset_read_counts():
+    with _lock:
+        for k in _reads:
+            _reads[k] = 0
+
+
+def _count(reader: str):
+    with _lock:
+        _reads[reader] += 1
+
+
+def _ptr(a: np.ndarray) -> int:
+    return a.ctypes.data
+
+
+def load_raw_batch(paths: List[str], width: int, height: int,
+                   num_threads: int = 8) -> np.ndarray:
+    """N raw disparity files -> [N,H,W] float32 (the threaded native reader,
+    numpy where it is not available). Raises IOError naming the first
+    file that is missing or short."""
+    lib = _load_lib()
+    n = len(paths)
+    if lib is None:
+        from .rawdepth import load_depth_raw
+        _count("numpy")
+        return (np.stack([load_depth_raw(p, width, height) for p in paths])
+                if n else np.zeros((0, height, width), np.float32))
+    out = np.empty((n, height, width), np.float32)
+    arr = (ctypes.c_char_p * n)(*[os.fsencode(p) for p in paths])
+    rc = lib.mvs_load_raw_batch(arr, n, width * height, _ptr(out),
+                                num_threads)
+    if rc != 0:
+        raise IOError(f"native raw batch load failed at {paths[rc - 1]}")
+    _count("native")
+    return out
+
+
+def parse_npts(path: str, max_points: int = 50_000_000
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """(points [P,3], normals [P,3]) of an npts file."""
+    lib = _load_lib()
+    if lib is None:
+        from .meshio import read_npts
+        return read_npts(path)
+    # size the buffer from the file size (>= 6 floats of ~2 chars each)
+    cap = min(max_points, max(os.path.getsize(path) // 12 + 16, 16))
+    buf = np.empty((cap, 6), np.float32)
+    n = lib.mvs_parse_npts(os.fsencode(path), _ptr(buf), cap)
+    if n < 0:
+        raise IOError(f"native npts parse failed: {path}")
+    data = buf[:n]
+    return data[:, :3].copy(), data[:, 3:].copy()
+
+
+def parse_obj(path: str):
+    """(vertices [V,3], normals [V,3] or None, faces [F,3] int32) of an
+    OBJ file."""
+    lib = _load_lib()
+    if lib is None:
+        from .meshio import read_obj
+        return read_obj(path)
+    nv, nn, nf = ctypes.c_int64(), ctypes.c_int64(), ctypes.c_int64()
+    if lib.mvs_parse_obj_counts(os.fsencode(path), ctypes.byref(nv),
+                                ctypes.byref(nn), ctypes.byref(nf)):
+        raise IOError(f"native obj parse failed: {path}")
+    verts = np.empty((nv.value, 3), np.float32)
+    normals = np.empty((nn.value, 3), np.float32)
+    faces = np.empty((nf.value, 3), np.int32)
+    if lib.mvs_parse_obj(os.fsencode(path), _ptr(verts), _ptr(normals),
+                         _ptr(faces), nv.value, nn.value, nf.value):
+        raise IOError(f"native obj parse failed: {path}")
+    return verts, (normals if nn.value else None), faces
+
+
+def write_raw(path: str, data: np.ndarray):
+    """Write a raster as raw float32."""
+    lib = _load_lib()
+    a = np.ascontiguousarray(data, np.float32)
+    if lib is None:
+        a.tofile(path)
+        return
+    if lib.mvs_write_raw(os.fsencode(path), _ptr(a), a.size):
+        raise IOError(f"native raw write failed: {path}")

@@ -17,6 +17,8 @@ Kernels:
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import _build
@@ -78,17 +80,31 @@ def _frames(disparity: torch.Tensor, K, R, t, name: str):
     return n, h, w
 
 
+# csrc/consistency.cu: kMaxOffsets neighbour offsets, each within kMaxHalo
+_K1_MAX_OFFSETS = 8
+_K1_MAX_HALO = 16
+
+
 def consistency(disparity: torch.Tensor, K: torch.Tensor, R: torch.Tensor,
                 t: torch.Tensor, *, min_dsp: float, max_dsp: float,
-                reproj_err: float) -> torch.Tensor:
-    """K1: [N,H,W] disparity filtered by the +-1-frame round trip."""
+                reproj_err: float, offsets=(-1, 1)) -> torch.Tensor:
+    """K1: [N,H,W] disparity filtered by the round trip into the frames at
+    ``offsets`` (at most 8, each within +-16 frames)."""
     n, h, w = _frames(disparity, K, R, t, "consistency")
+    offs = [int(o) for o in offsets]
+    if not (1 <= len(offs) <= _K1_MAX_OFFSETS and
+            all(abs(o) <= _K1_MAX_HALO for o in offs)):
+        raise ValueError(f"consistency: offsets {tuple(offsets)}: 1 to "
+                         f"{_K1_MAX_OFFSETS} of them, each within "
+                         f"+-{_K1_MAX_HALO}")
     out = torch.empty_like(disparity)
     lib = _build.load()
+    c_offs = (ctypes.c_int * len(offs))(*offs)
     err = lib.mvs_consistency(
         disparity.data_ptr(), K.data_ptr(), R.data_ptr(), t.data_ptr(),
-        out.data_ptr(), n, h, w, float(min_dsp), float(max_dsp),
-        float(reproj_err) * float(reproj_err), _stream(disparity))
+        out.data_ptr(), n, h, w, c_offs, len(offs), float(min_dsp),
+        float(max_dsp), float(reproj_err) * float(reproj_err),
+        _stream(disparity))
     _build.check(lib, err, "consistency")
     _launches["consistency"] += 1
     return out

@@ -35,8 +35,10 @@ _F = ctypes.c_float
 
 # C signature of every exported launcher: (argtypes); all return cudaError_t
 _SIGNATURES = {
-    # disp, K, R, t, out, n, h, w, min_dsp, max_dsp, reproj_err^2, stream
-    "mvs_consistency": (_P, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F, _P),
+    # disp, K, R, t, out, n, h, w, offsets (host int32), n_offsets, min_dsp,
+    # max_dsp, reproj_err^2, stream
+    "mvs_consistency": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _F, _F, _F,
+                        _P),
     # disp, K, R, t, centers, points, normals, conf, valid, n, h, w,
     # sample_radius, nbr_num, nbr_step, min_dsp, max_dsp, dsp_err, conf_min,
     # stream

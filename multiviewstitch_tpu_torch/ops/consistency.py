@@ -2,9 +2,11 @@
 
 PyTorch counterpart of ``multiviewstitch_tpu/ops/consistency.py``
 (Processor::CheckConsistency of the reference). A pixel keeps its
-disparity iff it is valid and, for every existing +-1 neighbour frame, its
-unprojection lands inside the neighbour image on a valid neighbour pixel
-whose own unprojection reprojects within ``reproj_err`` px of the pixel.
+disparity iff it is valid and, for every existing neighbour frame at
+``offsets`` (default -1 and +1), its unprojection lands inside the
+neighbour image on a valid neighbour pixel whose own unprojection
+reprojects within ``reproj_err`` px of the pixel. A neighbour outside the
+sequence casts no vote.
 
 On the card the whole filter is one kernel (K1, ``csrc/consistency.cu``);
 ``check_consistency_reference`` is its plain PyTorch version, taken for CPU
@@ -62,9 +64,8 @@ def _offset_check(pts, cam_pix: CameraBatch, uv, ndisp, ncams: CameraBatch,
 
 def check_consistency_reference(disparity, cams: CameraBatch, *,
                                 min_dsp: float, max_dsp: float,
-                                reproj_err: float):
-    """Plain PyTorch version of K1 (and the JAX function's semantics with
-    its default neighbour offsets -1 and +1)."""
+                                reproj_err: float, offsets=(-1, 1)):
+    """Plain PyTorch version of K1 (the JAX function's semantics)."""
     n, h, w = disparity.shape
     dev = disparity.device
     valid = (disparity >= min_dsp) & (disparity <= max_dsp)
@@ -74,7 +75,7 @@ def check_consistency_reference(disparity, cams: CameraBatch, *,
     pts = unproject(cam_pix, uv[None], depth)
     keep = valid
     ar = torch.arange(n, device=dev)
-    for off in (-1, 1):
+    for off in offsets:
         nbr = (ar + off).clamp(0, n - 1)
         exists = ((ar + off >= 0) & (ar + off < n))[:, None, None]
         ok = _offset_check(pts, cam_pix, uv, disparity[nbr], cams[nbr],
@@ -85,18 +86,19 @@ def check_consistency_reference(disparity, cams: CameraBatch, *,
 
 
 def check_consistency(disparity, cams: CameraBatch, *, min_dsp: float,
-                      max_dsp: float, reproj_err: float):
+                      max_dsp: float, reproj_err: float, offsets=(-1, 1)):
     """Filter a sequence [N,H,W] of disparity maps by cross-view
-    consistency; inconsistent pixels become 0. K1 on CUDA tensors."""
+    consistency against the frames at ``offsets``; inconsistent pixels
+    become 0. K1 on CUDA tensors."""
     if disparity.device.type == "cuda":
         return kernels.consistency(
             disparity.contiguous(), cams.K.contiguous(),
             cams.R.contiguous(), cams.t.contiguous(), min_dsp=min_dsp,
-            max_dsp=max_dsp, reproj_err=reproj_err)
+            max_dsp=max_dsp, reproj_err=reproj_err, offsets=offsets)
     if disparity.device.type == "cpu":
         return check_consistency_reference(
             disparity, cams, min_dsp=min_dsp, max_dsp=max_dsp,
-            reproj_err=reproj_err)
+            reproj_err=reproj_err, offsets=offsets)
     raise ValueError(f"check_consistency: unsupported device "
                      f"{disparity.device}")
 

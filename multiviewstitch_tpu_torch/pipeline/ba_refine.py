@@ -1,8 +1,8 @@
 """Bundle-adjustment refinement of the sequence chain
 (``align_sequences(refine="ba")``, the CLI's ``--refine ba``).
 
-PyTorch counterpart of ``multiviewstitch_tpu/pipeline/ba_refine.py`` (the
-single-device path; the sharded solve belongs to ``parallel/``). The
+PyTorch counterpart of ``multiviewstitch_tpu/pipeline/ba_refine.py``;
+with a mesh the LM solve shards its points (``parallel/ba_dist``). The
 reference never refines: every pose is one RANSAC solve
 (Processor.cpp:813-826).
 
@@ -268,19 +268,40 @@ def refit_similarities(seqs, transforms, st: BAState, cam_map
     return out
 
 
+def _solve_sharded(prob, st0: BAState, mesh, iters: int):
+    """solve_ba_sharded on the grouped layout of ``prob``, its points
+    padded to a multiple of the mesh size with zero-observation dummies
+    (all-false masks: they add nothing, and their updates are dropped)."""
+    from ..parallel.ba_dist import BAPointBlocks, solve_ba_sharded
+    n_pts = st0.points.shape[0]
+    n_pad = (-n_pts) % mesh.size
+
+    def pad(x):
+        return torch.cat([x, x.new_zeros((n_pad,) + x.shape[1:])])
+    blocks = BAPointBlocks(prob.K, pad(prob.cam_of), pad(prob.uv_g),
+                           pad(prob.pt_obs_mask), prob.fixed_cams)
+    st, rmse = solve_ba_sharded(blocks, st0._replace(points=pad(st0.points)),
+                                mesh, iters=iters)
+    return st._replace(points=st.points[:n_pts]), rmse
+
+
 def refine_with_ba(seqs, pairs, transforms, *, iters: int = 30,
-                   verbose: bool = False
+                   mesh=None, verbose: bool = False
                    ) -> Tuple[List[Similarity], Dict[str, float]]:
     """Bundle adjustment of the chain on its surviving matches, then the
     per-sequence similarity re-fit. Returns (new transforms, metrics:
     ba_rmse_init_px, ba_rmse_px, ba_cams, ba_tracks, ba_obs); with no
-    usable tracks, the input chain and {"ba_skipped": 1.0}."""
+    usable tracks, the input chain and {"ba_skipped": 1.0}. With ``mesh``
+    the LM solve shards point blocks over its ranks."""
     built = build_ba_problem(seqs, pairs, transforms)
     if built is None:
         return list(transforms), {"ba_skipped": 1.0}
     prob, st0, cam_map = built
     rmse0 = float(reprojection_rmse(prob, st0))
-    st, rmse = solve_ba(prob, st0, iters=iters, verbose=verbose)
+    if mesh is None:
+        st, rmse = solve_ba(prob, st0, iters=iters, verbose=verbose)
+    else:
+        st, rmse = _solve_sharded(prob, st0, mesh, iters)
     refined = refit_similarities(seqs, transforms, st, cam_map)
     metrics = {"ba_rmse_init_px": rmse0, "ba_rmse_px": rmse,
                "ba_cams": float(st.rvec.shape[0]),

@@ -1,6 +1,6 @@
-"""Bounded host-side prefetch.
+"""Bounded host-side prefetch and a two-stage pipeline.
 
-The port's copy of ``prefetch_map`` from
+The port's copy of ``prefetch_map`` and ``StagePipeline`` from
 ``multiviewstitch_tpu/pipeline/executor.py``. The reference runs every
 stage strictly serially on one thread (AlignmentSeq,
 Processor.cpp:835-1106); ``prefetch_map`` runs the producer for items
@@ -37,3 +37,19 @@ def prefetch_map(fn: Callable[[T], R], items: Iterable[T]) -> Iterator[R]:
         finally:
             for f in window:
                 f.cancel()
+
+
+class StagePipeline:
+    """Two-stage producer / consumer pipeline: ``producer`` runs on a
+    worker thread up to ``DEPTH`` items ahead, ``consumer`` on the caller's
+    thread; ``run`` returns the consumer's results in order. The producer
+    is typically host IO and input assembly; the consumer launches device
+    work, which PyTorch queues asynchronously, so the card stays busy while
+    the next item loads."""
+
+    def __init__(self, producer: Callable, consumer: Callable):
+        self.producer = producer
+        self.consumer = consumer
+
+    def run(self, items: Iterable) -> list:
+        return [self.consumer(x) for x in prefetch_map(self.producer, items)]

@@ -8,7 +8,9 @@ per image dir (from the reference's loaders; ``docs/DATA.md``):
   <dir>/<%05d>.jpg           RGB frames (Image3D.cpp:21)
 Image dirs come from the config's imgPathList (ParamParser.cpp:93-106).
 Files are read and decoded on the host (worker threads in
-``load_sequences``); the tensors move to the device on the caller's thread.
+``load_sequences``; the raw depth through the native threaded reader,
+``io/native_loader.load_raw_batch``, whose ``read_counts`` say which reader
+ran); the tensors move to the device on the caller's thread.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import torch
 
 from ..config import StitchConfig
 from ..core.cameras import CameraBatch, load_act, save_act
-from ..io.rawdepth import load_depth_raw, save_depth_raw
+from ..io.native_loader import load_raw_batch
+from ..io.rawdepth import save_depth_raw
 from .align_seq import Sequence
 
 
@@ -56,8 +59,7 @@ def _read_sequence_dir(imgdir: str, use_check: bool) -> _HostSequence:
     missing = [p for p in raw_paths if not os.path.exists(p)]
     if missing:
         raise FileNotFoundError(f"missing depth rasters, e.g. {missing[0]}")
-    disp = (np.stack([load_depth_raw(p, w, h) for p in raw_paths]) if n
-            else np.zeros((0, h, w), np.float32))
+    disp = load_raw_batch(raw_paths, w, h)
 
     grays = []
     for i in range(n):

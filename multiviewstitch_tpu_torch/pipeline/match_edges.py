@@ -7,9 +7,12 @@ texIndex mapping, dedup, SSD, gap-NMS, 3D lift and the adaptive RANSAC
 cascade — and keyframe selection plus the final solve pull one small
 result to the host.
 
-RANSAC draws from one ``torch.Generator`` for the whole sweep; the JAX
-package's per-edge threefry streams cannot be reproduced, so results agree
-with it in distribution, not bit for bit.
+RANSAC draws each edge's hypotheses from the counter-based stream of
+``solvers/srt`` keyed by (seed, sequence pair, edge id), as the JAX package
+keys them by ``fold_in(key, edge_id)``: an edge's result does not depend
+on which other edges share its batch, so the edge-sharded sweep
+(``parallel/match_dist``) equals this one bit for bit. The bits differ
+from JAX's threefry, so results agree with it in distribution.
 """
 
 from __future__ import annotations
@@ -25,7 +28,8 @@ from ..ops.filters import dedup_matches, ssd_filter, gap_filter
 from ..ops.match import match_descriptors
 from ..ops.segmentation import foreground_from_disparity
 from ..ops.view_synth import synthesize_views, view_angles
-from ..solvers.srt import estimate_srt_ransac, remove_outliers
+from ..solvers.srt import (FINAL_ROUND, RansacStream, estimate_srt_ransac,
+                           remove_outliers)
 
 
 class SequencePrep(NamedTuple):
@@ -96,20 +100,33 @@ def _pixel_take(img, ei, uv):
     return torch.gather(flat, 1, idx)
 
 
-def match_edges(prep1: SequencePrep, prep2: SequencePrep,
-                generator: torch.Generator, *, view_count: int, distmax,
-                ratiomax, ssd_win: int, ssd_err, min_gap_sq, pixel_err,
-                adapt_ratio, iter_num: int, rounds: int) -> EdgeBatch:
+def match_edges(prep1: SequencePrep, prep2: SequencePrep, key: int, *,
+                view_count: int, distmax, ratiomax, ssd_win: int, ssd_err,
+                min_gap_sq, pixel_err, adapt_ratio, iter_num: int,
+                rounds: int) -> EdgeBatch:
     """All n1*n2 frame-pair edges as one batch (Processor.cpp:644-744 and
-    RemoveOutliers, 177-259)."""
-    dev = prep1.gray.device
-    n1 = prep1.gray.shape[0]
+    RemoveOutliers, 177-259); edge e = i*n2 + j draws from ``key``'s
+    stream at edge id e."""
     n2 = prep2.gray.shape[0]
+    eid = torch.arange(prep1.gray.shape[0] * n2, device=prep1.gray.device)
+    out = match_edge_block(prep1, prep2, key, eid // n2, eid % n2, eid,
+                           view_count=view_count, distmax=distmax,
+                           ratiomax=ratiomax, ssd_win=ssd_win,
+                           ssd_err=ssd_err, min_gap_sq=min_gap_sq,
+                           pixel_err=pixel_err, adapt_ratio=adapt_ratio,
+                           iter_num=iter_num, rounds=rounds)
+    return EdgeBatch(eid // n2, eid % n2, *out)
+
+
+def match_edge_block(prep1: SequencePrep, prep2: SequencePrep, key: int,
+                     ei, ej, eid, *, view_count: int, distmax, ratiomax,
+                     ssd_win: int, ssd_err, min_gap_sq, pixel_err,
+                     adapt_ratio, iter_num: int, rounds: int):
+    """The edges (ei, ej) [B] with stream edge ids ``eid`` [B]: returns
+    (uv1, uv2, p1, p2, mask, residual, num_matches), each with leading
+    dim B, as in EdgeBatch."""
+    dev = prep1.gray.device
     h, w = prep1.gray.shape[-2:]
-    ei, ej = torch.meshgrid(torch.arange(n1, device=dev),
-                            torch.arange(n2, device=dev), indexing="ij")
-    ei = ei.reshape(-1)
-    ej = ej.reshape(-1)
     lim = torch.tensor([w - 1, h - 1], device=dev)
 
     uv1_all, uv2_all, ok_all = [], [], []
@@ -151,12 +168,12 @@ def match_edges(prep1: SequencePrep, prep2: SequencePrep,
     first3 = torch.arange(ok.shape[1], device=dev) < 3
     safe = torch.where(eligible[:, None], ok, first3.expand_as(ok))
     mask, _, res = remove_outliers(
-        p1, p2, safe, prep1.cams[ei], prep2.cams[ej], generator,
+        p1, p2, safe, prep1.cams[ei], prep2.cams[ej], RansacStream(key, eid),
         pixel_err=pixel_err, adapt_ratio=adapt_ratio, iter_num=iter_num,
         rounds=rounds)
     mask = mask & eligible[:, None]
     res = torch.where(eligible, res, torch.full_like(res, float("inf")))
-    return EdgeBatch(ei, ej, uv1, uv2, p1, p2, mask, res, mask.sum(-1))
+    return uv1, uv2, p1, p2, mask, res, mask.sum(-1)
 
 
 def edge_knobs(cfg: StitchConfig) -> dict:
@@ -171,12 +188,13 @@ def edge_knobs(cfg: StitchConfig) -> dict:
 
 
 def select_and_solve(edges: EdgeBatch, cams1: CameraBatch,
-                     cams2: CameraBatch, generator: torch.Generator, *,
+                     cams2: CameraBatch, key: int, *,
                      min_match_count: int, iter_num: int):
     """Keyframe selection (min residual among edges with >= min_match_count
     surviving matches, Processor.cpp:750-765) and the final SRT solve on
-    the winning edge. Returns (ok, best_e, nm [E], res [E], T), all on the
-    host (T as float32 CPU tensors)."""
+    the winning edge (``key``'s stream at that edge, round FINAL_ROUND).
+    Returns (ok, best_e, nm [E], res [E], T), all on the host (T as
+    float32 CPU tensors)."""
     nm = edges.num_matches
     res = edges.residual
     elig = nm >= min_match_count
@@ -184,7 +202,8 @@ def select_and_solve(edges: EdgeBatch, cams1: CameraBatch,
     best_e = int(scored.argmin())
     fi = int(edges.edge_i[best_e])
     fj = int(edges.edge_j[best_e])
+    stream = RansacStream(key, torch.tensor(best_e, device=res.device))
     T, _ = estimate_srt_ransac(
         edges.p1[best_e], edges.p2[best_e], edges.mask[best_e], cams1[fi],
-        cams2[fj], generator, iter_num=iter_num)
+        cams2[fj], stream, iter_num=iter_num, round_=FINAL_ROUND)
     return (bool(elig.any()), best_e, nm.cpu(), res.cpu(), T.to("cpu"))

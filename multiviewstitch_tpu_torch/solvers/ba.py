@@ -313,24 +313,31 @@ def back_substitute_points(W, Hpp_inv, bp, cam_of, delta_c):
     return torch.einsum("pij,pj->pi", Hpp_inv, bp - WTdc.sum(1))
 
 
-def gn_step(prob: BAProblem, st: BAState, lam) -> Tuple[BAState,
-                                                       torch.Tensor]:
-    """One damped GN step via the Schur complement. Returns (new state,
-    step norm). No host read."""
-    C = st.rvec.shape[0]
-    S, b, Hpp_inv, W, bp = _grouped_schur_terms(
-        prob.K, st.rvec, st.tvec, st.points, prob.cam_of, prob.uv_g,
-        prob.pt_obs_mask, lam)
+def solve_reduced(S, b, lam, fixed_cams):
+    """The camera step [C,6] of the reduced system S [6C,6C] (undamped;
+    updated in place), b [6C]: LM damping ``lam`` on the diagonal, the
+    fixed cameras' rows and columns replaced by identity, dense solve."""
+    C = fixed_cams.shape[0]
     diag = torch.arange(6 * C, device=S.device)
     S[diag, diag] += lam                   # LM damping of the camera blocks
     # gauge fixing: zero the fixed cameras' rows and columns, identity
     # diagonal
-    free = (~prob.fixed_cams).to(S.dtype).repeat_interleave(6)
+    free = (~fixed_cams).to(S.dtype).repeat_interleave(6)
     S = S * free[:, None] * free[None, :]
     S[diag, diag] += 1.0 - free
     S[diag, diag] += 1e-9
     delta_c = torch.linalg.solve_ex(S, b * free)[0] * free
-    delta_c = delta_c.reshape(C, 6)
+    return delta_c.reshape(C, 6)
+
+
+def gn_step(prob: BAProblem, st: BAState, lam) -> Tuple[BAState,
+                                                       torch.Tensor]:
+    """One damped GN step via the Schur complement. Returns (new state,
+    step norm). No host read."""
+    S, b, Hpp_inv, W, bp = _grouped_schur_terms(
+        prob.K, st.rvec, st.tvec, st.points, prob.cam_of, prob.uv_g,
+        prob.pt_obs_mask, lam)
+    delta_c = solve_reduced(S, b, lam, prob.fixed_cams)
     delta_p = back_substitute_points(W, Hpp_inv, bp, prob.cam_of, delta_c)
     new = BAState(st.rvec + delta_c[:, :3], st.tvec + delta_c[:, 3:],
                   st.points + delta_p)

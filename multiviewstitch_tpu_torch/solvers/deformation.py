@@ -301,41 +301,57 @@ def fit_rotation(S, squarings: int = 7):
     return torch.where(degenerate[..., None, None], eye3, R)
 
 
-def _fit_rotations(p, q, i, j, w):
-    """Per-vertex rotation best aligning rest edge vectors to current ones:
-    R_i = argmax tr(R S_i), S_i = sum_j w_ij (g_i-g_j)(p_i-p_j)^T.
-    A rest edge shorter than the stable_knn tie bound (two coincident
-    template vertices, moved apart by rounding) has no direction, only
-    noise, and its sliver's cotangent weight can be 1e5: it adds nothing."""
-    gd = p[i] - p[j]                          # rest
-    pd = q[i] - q[j]                          # deformed
-    tie = TIE_REL * p.abs().amax()
+def rotation_covariances(gd, pd, w, tie, nv: int, i, j):
+    """S_i = sum_j w_ij (g_i-g_j)(p_i-p_j)^T over the edges (i, j) with rest
+    vectors gd [E,3] and current ones pd [E,3], into nv rows. A rest edge
+    not longer than ``tie`` (two coincident template vertices, moved apart
+    by rounding) has no direction, only noise, and its sliver's cotangent
+    weight can be 1e5: it adds nothing."""
     w = torch.where((gd * gd).sum(-1) > tie * tie, w, torch.zeros_like(w))
     contrib = w[:, None, None] * gd[:, :, None] * pd[:, None, :]
-    S = torch.zeros((p.shape[0], 3, 3), dtype=p.dtype, device=p.device)
-    S.index_add_(0, i, contrib).index_add_(0, j, contrib)
+    S = torch.zeros((nv, 3, 3), dtype=gd.dtype, device=gd.device)
+    return S.index_add_(0, i, contrib).index_add_(0, j, contrib)
+
+
+def _fit_rotations(p, q, i, j, w):
+    """Per-vertex rotation best aligning rest edge vectors to current ones:
+    R_i = argmax tr(R S_i) (``rotation_covariances``, with the stable_knn
+    tie bound)."""
+    S = rotation_covariances(p[i] - p[j], q[i] - q[j], w,
+                             TIE_REL * p.abs().amax(), p.shape[0], i, j)
     return fit_rotation(S)
 
 
-def _cg(matvec, b, x0, iters: int, tol: float, precond):
+def _dot(a, b):
+    return (a * b).sum()
+
+
+def _cg(matvec, b, x0, iters: int, tol: float, precond, dot=_dot,
+        stop_early: bool = False):
     """Preconditioned CG for ``iters`` iterations. An iteration that starts
     with ||r|| <= tol, and every one after it, leaves the state unchanged
     (``torch.where`` on a device flag): the values of an early exit, with
-    no host read inside the loop."""
+    no host read inside the loop. ``dot``: the inner product (a sum over
+    every rank's block, for vertex-sharded state). ``stop_early`` ends the
+    loop at the first such iteration, for one host read an iteration: the
+    sharded solvers use it, as every rank reads the same all-reduced flag
+    and the iterations they skip would each cost collectives."""
     x = x0
     r = b - matvec(x0)
     z = precond(r)
     p = z
-    rz = (r * z).sum()
+    rz = dot(r, z)
     active = torch.ones((), dtype=torch.bool, device=b.device)
     for _ in range(iters):
-        active = active & (torch.linalg.norm(r) > tol)
+        active = active & (torch.sqrt(dot(r, r)) > tol)
+        if stop_early and not bool(active):
+            break
         Ap = matvec(p)
-        alpha = rz / (p * Ap).sum().clamp_min(1e-20)
+        alpha = rz / dot(p, Ap).clamp_min(1e-20)
         x_n = x + alpha * p
         r_n = r - alpha * Ap
         z_n = precond(r_n)
-        rz_n = (r_n * z_n).sum()
+        rz_n = dot(r_n, z_n)
         beta = rz_n / rz.clamp_min(1e-20)
         p_n = z_n + beta * p
         x = torch.where(active, x_n, x)

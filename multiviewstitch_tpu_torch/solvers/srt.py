@@ -6,14 +6,21 @@ PyTorch counterpart of ``multiviewstitch_tpu/solvers/srt.py``
 batch [...].
 
 RANSAC is split in two so the scorer can be held against the JAX package
-on the same hypotheses: ``sample_triples`` draws index triples from a
-``torch.Generator`` (Gumbel top-3 over the valid mask: uniform sampling
-without replacement), and ``estimate_srt_from_triples`` scores them.
+on the same hypotheses: ``sample_triples`` draws index triples (top-3 of
+the stream's uniforms over the valid mask: uniform sampling without
+replacement), and ``estimate_srt_from_triples`` scores them.
+
+The random stream is counter-based: a match's uniform is an integer hash
+of (seed, sequence pair, edge id, round, hypothesis, match), so an edge
+draws the same hypotheses whatever other edges share its batch, on any
+rank of a sharded sweep and on the CPU and the card alike (the role of the
+JAX package's ``fold_in(key, edge_id)`` threefry keys; the bits differ
+from JAX's).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -116,14 +123,64 @@ def residual_error(T: Similarity, p1, p2, mask, cam1, cam2):
     return _masked_mean(0.5 * (e1 + e2), mask, dim=-1)
 
 
-def sample_triples(mask, iter_num: int, generator: torch.Generator):
+_M32 = 0xFFFFFFFF
+# the round of the final solve on the chosen edge (select_and_solve)
+FINAL_ROUND = 0xFFFF
+
+
+def _mul32(x, c: int):
+    """(x * c) mod 2^32 for int64 x in [0, 2^32) and a constant c < 2^32,
+    in 16-bit halves so no product leaves int64's range."""
+    lo, hi = x & 0xFFFF, x >> 16
+    return (lo * c + ((hi * (c & 0xFFFF)) << 16)) & _M32
+
+
+def _hash32(x):
+    """A bijective 32-bit integer mix (lowbias32) on int64 tensors (or
+    Python ints) holding 32-bit values."""
+    x = _mul32(x ^ (x >> 16), 0x7FEB352D)
+    x = _mul32(x ^ (x >> 15), 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def stream_key(seed: int, pair: int) -> int:
+    """The 32-bit stream key of one sequence pair's sweep."""
+    return int(_hash32(_hash32(int(seed) & _M32) ^ (int(pair) & _M32)))
+
+
+class RansacStream(NamedTuple):
+    """The random stream of a batch of RANSAC problems: the sweep's key
+    and each problem's edge id (int64, the problems' batch shape)."""
+    key: int
+    edge: torch.Tensor
+
+
+def stream_bits(stream: RansacStream, round_: int, n_hyp: int, m: int):
+    """[*edge.shape, n_hyp, m] int64 32-bit hashes of (key, edge, round,
+    hypothesis, match); within one (edge, round, hypothesis) all m differ."""
+    e = _hash32(stream.edge.to(torch.int64) ^ stream.key)
+    e = _hash32(e ^ (int(round_) & _M32))
+    dev = stream.edge.device
+    k = _hash32(e[..., None] ^ torch.arange(n_hyp, device=dev))
+    j = _mul32(torch.arange(m, device=dev), 0x9E3779B9)
+    return _hash32(k[..., None] ^ j)
+
+
+def stream_uniforms(stream: RansacStream, round_: int, n_hyp: int, m: int):
+    """The stream's float32 uniforms in (0, 1): the top 24 bits of
+    ``stream_bits``, (k + 0.5) / 2^24 (rounded to float32, so 1.0 can
+    occur at the top)."""
+    bits = stream_bits(stream, round_, n_hyp, m) >> 8
+    return (bits.to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+
+
+def sample_triples(mask, iter_num: int, stream: RansacStream, round_: int):
     """[...,iter_num,3] int64 indices: per hypothesis, 3 distinct valid
-    matches drawn uniformly (Gumbel top-3 over the valid mask)."""
-    shape = (*mask.shape[:-1], iter_num, mask.shape[-1])
-    u = torch.rand(shape, generator=generator, device=mask.device,
-                   dtype=torch.float32)
-    g = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
-    g = torch.where(mask[..., None, :], g, torch.full_like(g, -float("inf")))
+    matches drawn uniformly, as the top 3 of the stream's draws over the
+    valid mask (the uniforms' order, ties broken by their low 8 bits, so
+    no tie is left to the sort)."""
+    bits = stream_bits(stream, round_, iter_num, mask.shape[-1])
+    g = torch.where(mask[..., None, :], bits, torch.full_like(bits, -1))
     return torch.topk(g, 3, dim=-1).indices
 
 
@@ -166,25 +223,27 @@ def estimate_srt_from_triples(p1, p2, mask, cam1: CameraBatch,
 
 
 def estimate_srt_ransac(p1, p2, mask, cam1: CameraBatch, cam2: CameraBatch,
-                        generator: torch.Generator, *, iter_num: int = 200):
-    """RANSAC similarity solve, all hypotheses batched."""
-    idx = sample_triples(mask, iter_num, generator)
+                        stream: RansacStream, *, iter_num: int = 200,
+                        round_: int = 0):
+    """RANSAC similarity solve, all hypotheses batched, drawn from round
+    ``round_`` of ``stream``."""
+    idx = sample_triples(mask, iter_num, stream, round_)
     return estimate_srt_from_triples(p1, p2, mask, cam1, cam2, idx)
 
 
 def remove_outliers(p1, p2, mask, cam1: CameraBatch, cam2: CameraBatch,
-                    generator: torch.Generator, *, pixel_err: float,
+                    stream: RansacStream, *, pixel_err: float,
                     adapt_ratio: float, iter_num: int = 200,
                     rounds: int = 3):
     """The reference's adaptive outlier pruning (Processor.cpp:177-259):
     ``rounds`` rounds of {RANSAC fit -> drop matches whose either pixel
-    error exceeds pixel_err * ratio}, ratio shrinking by adapt_ratio.
-    Returns (mask, T, residual)."""
+    error exceeds pixel_err * ratio}, ratio shrinking by adapt_ratio;
+    round r draws round r of ``stream``. Returns (mask, T, residual)."""
     ratio = 1.0
     T, res = None, None
-    for _ in range(rounds):
-        T, res = estimate_srt_ransac(p1, p2, mask, cam1, cam2, generator,
-                                     iter_num=iter_num)
+    for r in range(rounds):
+        T, res = estimate_srt_ransac(p1, p2, mask, cam1, cam2, stream,
+                                     iter_num=iter_num, round_=r)
         e1, e2 = per_match_errors(T, p1, p2, cam1, cam2)
         thr = pixel_err * ratio
         new_mask = mask & (e1 <= thr) & (e2 <= thr)

@@ -108,3 +108,24 @@ def test_plain_gather_matches_pallas_banded_interpret():
                            torch.as_tensor(iy)[None].long(),
                            torch.as_tensor(ix)[None].long())[0].numpy()
     np.testing.assert_array_equal(got, np.asarray(vals))
+
+
+@pytest.mark.parametrize("offsets", [(-2, -1, 1, 2), (-3, 3)])
+def test_neighbour_offsets_match_jax_exactly(offsets):
+    """The plain version at other neighbour offsets against JAX's
+    check_consistency(offsets=...) on tests/test_view_windows.py's ring
+    (no rounding ties there): exact. The default offsets are (-1, 1)."""
+    from tests.test_torch_parallel import ring_sequence
+    disp, K, R, t = ring_sequence()
+    n, h, w = disp.shape
+    kw = dict(min_dsp=1e-3, max_dsp=10.0, reproj_err=2)
+    want = np.asarray(j_check(jnp.asarray(disp), JCams(K, R, t, w, h),
+                              offsets=offsets, **kw))
+    cams = cameras_from_numpy(K, R, t, w, h, "cpu")
+    got = check_consistency(torch.as_tensor(disp), cams, offsets=offsets,
+                            **kw).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert 0.01 < (got > 0).mean() < 0.99
+    ref = check_consistency_reference(torch.as_tensor(disp), cams, **kw)
+    assert torch.equal(ref, check_consistency_reference(
+        torch.as_tensor(disp), cams, offsets=(-1, 1), **kw))

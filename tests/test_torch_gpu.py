@@ -1,7 +1,8 @@
 """The hand-written CUDA kernels K1-K3 against their plain PyTorch versions
-on the card, and the plain-PyTorch stages around them (deform, depth
-refine, bundle adjustment, the pose graph, the refined demo align) on the
-card against the CPU. Every test here needs an NVIDIA GPU with nvcc and skips
+on the card (K1 also at other neighbour offsets), the plain-PyTorch
+stages around them (deform, depth refine, bundle adjustment, the pose
+graph, the refined demo align) on the card against the CPU, and the
+multi-device layer over one NCCL rank (the windowed filter, sharded BA). Every test here needs an NVIDIA GPU with nvcc and skips
 without one. The file imports no jax, so the card runs it without the
 JAX package (tests/conftest.py imports jax, hence --noconftest):
 
@@ -102,6 +103,65 @@ def test_k1_unaligned_rows_take_the_scalar_path(scene):
     assert shifted.data_ptr() % 16 == 4
     assert torch.equal(_k1_matches_plain(shifted, cams),
                        _k1_matches_plain(d, cams))
+
+
+@pytest.mark.parametrize("offsets", [(-2, -1, 1, 2), (-3, 3), (1,),
+                                     (-16, 16)])
+def test_k1_neighbour_offsets_match_plain(cuda, offsets):
+    sc = make_scene(n_frames=12, width=96, height=72, bumps=0.15,
+                    n_lat=32, n_lon=48, arc_deg=60.0, device=cuda)
+    d = _noisy(sc, cuda)
+    kw = dict(K1_KW, offsets=offsets)
+    got = _counted("consistency",
+                   lambda: tc.check_consistency(d, sc.cams, **kw))
+    assert torch.equal(got, tc.check_consistency_reference(d, sc.cams, **kw))
+    with pytest.raises(ValueError, match="offsets"):
+        tc.check_consistency(d, sc.cams, offsets=(17,), **K1_KW)
+
+
+@pytest.fixture(scope="module")
+def nccl_mesh(cuda):
+    from multiviewstitch_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh()
+    yield mesh
+    mesh.close()
+
+
+@pytest.mark.parametrize("halo", [1, 2])
+def test_windowed_filter_on_one_nccl_rank(cuda, nccl_mesh, halo):
+    """World size 1 over NCCL: the window is the whole sequence, K1 runs
+    at offsets +-1..+-halo, bit-identical to the global filter."""
+    from multiviewstitch_tpu_torch.parallel.view_windows import (
+        check_consistency_windowed)
+    assert (nccl_mesh.backend, nccl_mesh.size) == ("nccl", 1)
+    sc = make_scene(n_frames=8, width=160, height=120, bumps=0.15,
+                    n_lat=32, n_lon=48, arc_deg=60.0, device=cuda)
+    d = _noisy(sc, cuda)
+    offs = tuple(o for o in range(-halo, halo + 1) if o)
+    got = _counted("consistency", lambda: check_consistency_windowed(
+        d, sc.cams, mesh=nccl_mesh, halo=halo, **K1_KW))
+    assert torch.equal(got, tc.check_consistency_reference(
+        d, sc.cams, offsets=offs, **K1_KW))
+
+
+def test_sharded_ba_on_one_nccl_rank(cuda, nccl_mesh):
+    """solve_ba_sharded over one NCCL rank against solve_ba on the card:
+    the same math with the RMSE summed in the grouped layout, so within
+    the card-vs-CPU test's bound."""
+    from multiviewstitch_tpu_torch.parallel import ba_dist
+    from multiviewstitch_tpu_torch.solvers import ba
+    K, ci, pi, uv, n_pts, n_cams, st = _synth_ba()
+    prob = ba.make_problem(K, ci, pi, uv, n_pts, n_cams=n_cams,
+                           fixed_cams=[0, n_cams - 1], device=cuda)
+    s0 = ba.BAState(*(torch.as_tensor(a, device=cuda) for a in st))
+    want, rw = ba.solve_ba(prob, s0, iters=20)
+    blocks = ba_dist.BAPointBlocks(prob.K, prob.cam_of, prob.uv_g,
+                                   prob.pt_obs_mask, prob.fixed_cams)
+    got, rg = ba_dist.solve_ba_sharded(blocks, s0, nccl_mesh, iters=20)
+    assert rg < 1.0 and abs(rg - rw) <= 1e-4
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
 
 
 @pytest.mark.parametrize("fill", [0.0, 20.0])

@@ -27,7 +27,11 @@ for mod in ("ops.mesh_normals", "ops.depth_refine", "solvers.pca",
             "solvers.alignment", "solvers.deformation", "models.parts",
             "models.template_body", "pipeline.deform_render", "solvers.ba",
             "solvers.pose_graph", "pipeline.ba_refine",
-            "utils.debug_artifacts", "utils.debug_mode", "utils.metrics"):
+            "utils.debug_artifacts", "utils.debug_mode", "utils.metrics",
+            "parallel", "parallel.mesh", "parallel.view_windows",
+            "parallel.match_dist", "parallel.ba_dist", "parallel.arap_dist",
+            "parallel.arap_blocks", "pipeline.executor", "utils.profiling",
+            "io.native_loader", "ops.simplify", "solvers.essential"):
     assert "multiviewstitch_tpu_torch." + mod in names, mod
 bad = sorted(k for k in sys.modules if k == "jax" or k.startswith("jax."))
 ref = sorted(k for k in sys.modules if k == "multiviewstitch_tpu" or

@@ -127,7 +127,8 @@ def test_align_survives_sensor_noise(level):
 def test_srt_ransac_survives_gross_outliers():
     """30 % uniformly corrupted correspondences do not move the RANSAC SRT
     (the RemoveOutliers contract, Processor.cpp:196-259)."""
-    from multiviewstitch_tpu_torch.solvers.srt import estimate_srt_ransac
+    from multiviewstitch_tpu_torch.solvers.srt import (
+        RansacStream, estimate_srt_ransac, stream_key)
     rng = np.random.default_rng(3)
     p1 = rng.uniform(-0.5, 0.5, size=(200, 3)).astype(np.float32)
     p1[:, 2] += 3.0
@@ -142,10 +143,10 @@ def test_srt_ransac_survives_gross_outliers():
         np.float32)
     K = np.array([[200.0, 0, 80.0], [0, 200.0, 60.0], [0, 0, 1]])
     cam = cameras_from_numpy(K, np.eye(3), np.zeros(3), 160, 120, "cpu")
-    gen = torch.Generator().manual_seed(0)
+    stream = RansacStream(stream_key(0, 0), torch.tensor(0))
     T, _ = estimate_srt_ransac(torch.as_tensor(p1), torch.as_tensor(p2),
                                torch.ones(200, dtype=torch.bool), cam, cam,
-                               gen, iter_num=256)
+                               stream, iter_num=256)
     assert abs(float(T.s) - s) / s < 0.02
     assert rotation_angle_deg(T.R, R) < 1.0
     assert np.linalg.norm(T.t.numpy() - t) < 0.03

@@ -120,8 +120,8 @@ def test_remove_outliers_drops_injected_outliers_batched():
                             128, 96, "cpu")
     c2 = cameras_from_numpy(*[np.stack([cams[1][k]] * 2) for k in range(3)],
                             128, 96, "cpu")
-    gen = torch.Generator().manual_seed(0)
-    out, T, res = ts.remove_outliers(p1, p2, mask, c1, c2, gen,
+    stream = ts.RansacStream(ts.stream_key(0, 0), torch.arange(2))
+    out, T, res = ts.remove_outliers(p1, p2, mask, c1, c2, stream,
                                      pixel_err=12.0, adapt_ratio=0.6,
                                      iter_num=128, rounds=3)
     for e, (_, _, m, (s, R, _), bad) in enumerate(probs):
@@ -131,7 +131,7 @@ def test_remove_outliers_drops_injected_outliers_batched():
         assert not (kept & bad).any()
         assert (kept & ~bad & m).sum() > 0.8 * (~bad & m).sum()
         assert float(res[e]) < 2.0
-    idx = ts.sample_triples(mask, 16, torch.Generator().manual_seed(1))
+    idx = ts.sample_triples(mask, 16, stream, 1)
     assert idx.shape == (2, 16, 3)
     picked = torch.gather(mask[:, None, :].expand(-1, 16, -1), 2, idx)
     assert picked.all()
