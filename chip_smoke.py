@@ -99,8 +99,9 @@ Phases, in order (any failure raises and the exit code is non-zero):
      iterations (state within 1e-3); logs ms per LM iteration (CUDA
      events, median), the peak device memory and the device-busy share
  10. parallel, the multi-device layer at NCCL world size 1 (one card: the
-     tests hold 2 to 4 gloo ranks): make_mesh() (NCCL, a file:// store);
-     the windowed filter on the 64-frame VGA sequence at halo 1 and 2,
+     tests hold 2 to 4 gloo ranks): make_mesh() (NCCL, a file:// store),
+     its all_reduce and all_gather (every helper runs its collective at
+     world size 1 too, so each case below runs on NCCL); the windowed filter on the 64-frame VGA sequence at halo 1 and 2,
      bit-identical to check_consistency at +-1..+-halo, K1 launched once
      through it; config-5 at full width (2 x 32 VGA frames on a 120-degree
      arc, the second moved by s 1.15, 10 degrees, t (0.1, -0.05, 0.15);
@@ -1630,7 +1631,9 @@ def phase_parallel(dev, arap_prob, ba_ms):
     """Phase 10: the multi-device layer on the card at NCCL world size 1
     (one card: NCCL puts one rank on a GPU; the tests hold 2 and 4 ranks
     with gloo on the CPU)."""
-    from multiviewstitch_tpu_torch.parallel.mesh import make_mesh
+    from multiviewstitch_tpu_torch.parallel.mesh import (all_reduce_sum,
+                                                         gather_along,
+                                                         make_mesh)
     t0 = time.perf_counter()
     mesh = make_mesh()
     try:
@@ -1638,6 +1641,12 @@ def phase_parallel(dev, arap_prob, ba_ms):
             f"device {mesh.device}, axis {mesh.shape} (make_mesh in "
             f"{time.perf_counter() - t0:.3f} s)")
         assert (mesh.backend, mesh.size) == ("nccl", 1)
+        x = torch.arange(6.0, device=mesh.device)
+        flags = x > 2.0
+        assert torch.equal(all_reduce_sum(mesh, x.clone()), x)
+        assert torch.equal(gather_along(mesh, flags), flags)
+        log("parallel mesh: NCCL all_reduce and all_gather (bool as bytes) "
+            "return their input at world size 1")
         phase_windowed(dev, mesh)
         phase_config5(dev, mesh)
         phase_parallel_ba(dev, mesh, ba_ms)

@@ -15,8 +15,9 @@ this is the memory-scaling layout:
     edge sum makes to another rank's vertices ride one ``all_reduce`` of
     the [D,Hmax,...] slot table. Per-rank state is O(V/D + D*Hmax).
   - CG's dot products are sums over the ranks' blocks (one ``all_reduce``
-    each); every rank reads the same converged flag and leaves the CG at
-    the same iteration.
+    each). The CG runs its fixed iteration count with no host read; the
+    all-reduced residual freezes every rank's state at the same
+    iteration.
 
 The math is ``solvers/deformation.arap_solve``'s edge-scatter CG path
 (its rotation fit and tie bound included); sums are taken in another
@@ -156,8 +157,7 @@ def arap_solve_blocks(prob: ARAPBlockProblem, *, mesh: Mesh,
     rest_e = ext(rest)
     gd = rest_e[ei] - rest_e[ej]
     amax = rest.abs().amax()
-    if mesh.size > 1:
-        dist.all_reduce(amax, op=dist.ReduceOp.MAX)
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX)
     tie = TIE_REL * amax
 
     p = torch.where(con[:, None], tgt, rest)
@@ -173,8 +173,7 @@ def arap_solve_blocks(prob: ARAPBlockProblem, *, mesh: Mesh,
         b = torch.where(free[:, None], b, torch.zeros_like(b))
         x = _cg(lap_free, b, torch.where(free[:, None], p,
                                          torch.zeros_like(p)),
-                cg_iters, tol, lambda q: dinv[:, None] * q, dot=pdot,
-                stop_early=True)
+                cg_iters, tol, lambda q: dinv[:, None] * q, dot=pdot)
         p = torch.where(free[:, None], x, p)
     return gather_along(mesh, p)[:prob.n_vertices]
 

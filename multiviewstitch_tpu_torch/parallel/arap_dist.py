@@ -10,9 +10,10 @@ partitioned per host ... solves via collectives"):
     into per-vertex partials and one ``all_reduce`` gives the whole sum.
   - VERTEX STATE is replicated: every rank runs the same Jacobi-
     preconditioned CG (``solvers/deformation._cg``) on identical
-    all-reduced vectors, so its dot products need no collective, and all
-    ranks leave the CG at the same converged iteration (one host read an
-    iteration, where every skipped iteration would cost an ``all_reduce``).
+    all-reduced vectors, so its dot products need no collective; the CG
+    runs its fixed iteration count with no host read, and the converged
+    state is frozen (``torch.where``) at the same iteration on every
+    rank.
 
 The math is ``solvers/deformation.arap_solve``'s edge-scatter CG path
 (with its rotation fit and tie bound); sums are taken in another order,
@@ -82,7 +83,6 @@ def arap_solve_sharded(prob: ARAPProblem, *, mesh: Mesh,
                                i, j, w))
         b = torch.where(free[:, None], b, torch.zeros_like(b))
         x0 = torch.where(free[:, None], p, torch.zeros_like(p))
-        x = _cg(mv, b, x0, cg_iters, tol, lambda r: dinv[:, None] * r,
-                stop_early=True)
+        x = _cg(mv, b, x0, cg_iters, tol, lambda r: dinv[:, None] * r)
         p = torch.where(free[:, None], x, p)
     return p

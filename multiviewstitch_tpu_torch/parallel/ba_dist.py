@@ -12,10 +12,10 @@ collectives"):
     ``all_reduce`` each for S and b gives the full system on every rank;
     the dense solve (``solve_reduced``) is replicated; the points' back
     substitution (``back_substitute_points``) stays local.
-  - the LM loop runs a fixed number of iterations with accept / reject by
-    ``torch.where`` and no host read, the state frozen once the damping
-    reaches 1e3, as ``solvers/ba.solve_ba``; its RMSE takes one
-    ``all_reduce`` of (squared sum, count).
+  - the LM loop is ``solvers/ba.lm_solve``'s (a fixed number of
+    iterations, accept / reject by ``torch.where``, no host read, the
+    state frozen once the damping reaches 1e3), given the sharded step and
+    an RMSE that takes one ``all_reduce`` of (squared sum, count).
 
 Sums are taken in another order than the single-device solve's, so the
 two agree to float32 reduction tolerance, not bit for bit.
@@ -29,8 +29,8 @@ import numpy as np
 import torch
 
 from ..solvers.ba import (BAState, _group_ranks, _grouped_schur_terms,
-                          _project, back_substitute_points, rodrigues,
-                          solve_reduced)
+                          _project, back_substitute_points, lm_solve,
+                          lm_update, rodrigues, solve_reduced)
 from .mesh import Mesh, all_reduce_sum, block_range, gather_along
 
 
@@ -132,33 +132,28 @@ def gn_step_sharded(prob: BAPointBlocks, st: BAState, lam, *,
     return new._replace(points=gather_along(mesh, new.points))
 
 
+def _lm_hooks(blk: BAPointBlocks, mesh: Mesh):
+    """(step, rmse) of the rank-local state for ``solvers/ba.lm_update``."""
+    return (lambda st, lam: _step_local(blk, st, lam, mesh),
+            lambda st: rmse_sharded(blk, st, mesh))
+
+
 def lm_step_sharded(blk: BAPointBlocks, st: BAState, best, lam, mesh: Mesh):
-    """One LM iteration of the rank-local state (``shard_state``): the
-    sharded GN step, accepted only if it lowers the RMSE ``best``, as
-    ``solvers/ba.lm_step``. Returns (state, best, lam); no host read."""
-    active = lam < 1e3
-    cand = _step_local(blk, st, lam, mesh)
-    err = rmse_sharded(blk, cand, mesh)
-    acc = active & (err < best)
-    st = BAState(*(torch.where(acc, c, s) for c, s in zip(cand, st)))
-    best = torch.where(acc, err, best)
-    lam = torch.where(active, torch.where(acc, (lam * 0.5).clamp_min(1e-7),
-                                          (lam * 4.0).clamp_max(1e3)), lam)
-    return st, best, lam
+    """One LM iteration of the rank-local state (``shard_state``):
+    ``solvers/ba.lm_update`` with the sharded GN step and RMSE. Returns
+    (state, best, lam); no host read."""
+    return lm_update(*_lm_hooks(blk, mesh), st, best, lam)
 
 
 def solve_ba_sharded(prob: BAPointBlocks, st: BAState, mesh: Mesh, *,
                      iters: int = 20, lam0: float = 1e-3
                      ) -> Tuple[BAState, float]:
-    """Sharded LM solve: ``iters`` iterations from damping ``lam0``; the
-    one host read is the final RMSE. The point count must divide by the
-    mesh size (pad with all-false masks). Returns (whole state on every
-    rank, RMSE in pixels)."""
+    """Sharded LM solve (``solvers/ba.lm_solve``): ``iters`` iterations
+    from damping ``lam0``; the one host read is the final RMSE. The point
+    count must divide by the mesh size (pad with all-false masks). Returns
+    (whole state on every rank, RMSE in pixels)."""
     blk = shard_problem(prob, mesh)
-    stl = shard_state(st, mesh)
-    best = rmse_sharded(blk, stl, mesh)
-    lam = torch.full((), lam0, dtype=torch.float32, device=mesh.device)
-    for _ in range(iters):
-        stl, best, lam = lm_step_sharded(blk, stl, best, lam, mesh)
+    stl, best = lm_solve(*_lm_hooks(blk, mesh), shard_state(st, mesh),
+                         iters=iters, lam0=lam0)
     return (stl._replace(points=gather_along(mesh, stl.points)),
             float(best))

@@ -15,14 +15,17 @@ and point blocks the parallel modules split).
     ``jax.distributed.initialize`` bootstrap does.
   - ``run_spmd`` spawns ``world`` ranks over a ``file://`` store and
     returns each rank's result: multi-process torch standing in for
-    ``shard_map``'s single-process SPMD (the tests run it with gloo on the
-    CPU).
+    ``shard_map``'s single-process SPMD. Its ranks are NCCL on the cards
+    unless the caller asks for ``device="cpu"`` (gloo, as the tests run
+    it).
   - ``shard_along`` / ``replicated`` / ``gather_along``: a rank's block of
     an axis, the whole array on the rank's device, and the blocks of every
     rank concatenated back (one ``all_gather``).
 
 Every collective here is one that gloo and NCCL both take: ``all_reduce``,
-``all_gather`` (list form) and ``batch_isend_irecv``.
+``all_gather`` (list form) and ``batch_isend_irecv``. They run at every
+world size, one included, so a world-size-1 group makes each call the
+layer makes.
 """
 
 from __future__ import annotations
@@ -188,8 +191,6 @@ def replicated(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
 def gather_along(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     """Every rank's block (equal shapes) concatenated along the leading
     axis in rank order: one ``all_gather``."""
-    if mesh.size == 1:
-        return x
     flag = x.dtype == torch.bool         # sent as bytes (gloo has no bool)
     x = (x.view(torch.uint8) if flag else x).contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.size)]
@@ -199,9 +200,9 @@ def gather_along(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
 
 
 def all_reduce_sum(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
-    """The sum of x over the ranks (every rank gets the same values)."""
-    if mesh.size > 1:
-        dist.all_reduce(x)
+    """The sum of x over the ranks (every rank gets the same values; x is
+    reduced in place)."""
+    dist.all_reduce(x)
     return x
 
 
@@ -256,11 +257,11 @@ def _rank_main(rank: int, world: int, store: str, device: str,
         results.put((rank, False, traceback.format_exc()))
 
 
-def run_spmd(fn: Callable, world: int, *args, device: str = "cpu",
+def run_spmd(fn: Callable, world: int, *args, device: str = "cuda",
              **kwargs) -> List:
     """Run ``fn(*args, mesh=<rank's Mesh>, **kwargs)`` on ``world`` spawned
-    ranks (gloo on the CPU unless ``device="cuda"``, NCCL, one card a rank)
-    and return the ranks' results in rank order, tensors on the CPU.
+    ranks (NCCL, one card a rank; gloo on the CPU only for
+    ``device="cpu"``) and return the ranks' results in rank order, tensors on the CPU.
 
     ``fn`` must be importable by the ranks (a module-level function of this
     package); the ranks import torch and this package and nothing of the

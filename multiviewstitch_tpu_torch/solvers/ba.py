@@ -344,15 +344,17 @@ def gn_step(prob: BAProblem, st: BAState, lam) -> Tuple[BAState,
     return new, torch.sqrt((delta_c ** 2).sum() + (delta_p ** 2).sum())
 
 
-def lm_step(prob: BAProblem, st: BAState, best, lam):
-    """One LM iteration on device tensors: a GN step, accepted only if it
-    lowers the RMSE ``best`` (damping ``lam`` halved, floor 1e-7) or
-    rejected (damping x4, cap 1e3); once the damping is at the cap nothing
-    changes, as the JAX loop exits there. Accept / reject are
-    ``torch.where``: no host read. Returns (state, best, lam)."""
+def lm_update(step, rmse, st: BAState, best, lam):
+    """One LM iteration on device tensors: the candidate ``step(st, lam)``,
+    accepted only if its ``rmse(state)`` lowers the RMSE ``best`` (damping
+    ``lam`` halved, floor 1e-7) or rejected (damping x4, cap 1e3); once the
+    damping is at the cap nothing changes, as the JAX loop exits there.
+    Accept / reject are ``torch.where``: no host read. The step and the
+    RMSE are the layout's (``lm_step``; the point-sharded solver's in
+    ``parallel/ba_dist``). Returns (state, best, lam)."""
     active = lam < 1e3
-    cand, _ = gn_step(prob, st, lam)
-    err = reprojection_rmse(prob, cand)
+    cand = step(st, lam)
+    err = rmse(cand)
     acc = active & (err < best)
     st = BAState(*(torch.where(acc, c, s) for c, s in zip(cand, st)))
     best = torch.where(acc, err, best)
@@ -361,16 +363,35 @@ def lm_step(prob: BAProblem, st: BAState, best, lam):
     return st, best, lam
 
 
+def lm_solve(step, rmse, st: BAState, *, iters: int, lam0: float):
+    """``iters`` ``lm_update`` iterations from damping ``lam0``, with no
+    host read. Returns (state, RMSE as a 0-dim tensor)."""
+    best = rmse(st)
+    lam = torch.full((), lam0, dtype=torch.float32, device=best.device)
+    for _ in range(iters):
+        st, best, lam = lm_update(step, rmse, st, best, lam)
+    return st, best
+
+
+def _lm_hooks(prob: BAProblem):
+    """(step, rmse) of the single-device solver for ``lm_update``."""
+    return (lambda st, lam: gn_step(prob, st, lam)[0],
+            lambda st: reprojection_rmse(prob, st))
+
+
+def lm_step(prob: BAProblem, st: BAState, best, lam):
+    """One ``lm_update`` of the single-device solver (``gn_step``,
+    ``reprojection_rmse``). Returns (state, best, lam)."""
+    return lm_update(*_lm_hooks(prob), st, best, lam)
+
+
 def solve_ba(prob: BAProblem, st: BAState, *, iters: int = 20,
              lam0: float = 1e-3, verbose: bool = False
              ) -> Tuple[BAState, float]:
     """LM solve: ``iters`` ``lm_step`` iterations from damping ``lam0``;
     the single host read is the final RMSE. Returns (state, RMSE in
     pixels)."""
-    best = reprojection_rmse(prob, st)
-    lam = torch.full((), lam0, dtype=torch.float32, device=best.device)
-    for _ in range(iters):
-        st, best, lam = lm_step(prob, st, best, lam)
+    st, best = lm_solve(*_lm_hooks(prob), st, iters=iters, lam0=lam0)
     rmse = float(best)
     if verbose:
         print(f"  BA: rmse {rmse:.4f} after <= {iters} LM iters")

@@ -326,16 +326,12 @@ def _dot(a, b):
     return (a * b).sum()
 
 
-def _cg(matvec, b, x0, iters: int, tol: float, precond, dot=_dot,
-        stop_early: bool = False):
+def _cg(matvec, b, x0, iters: int, tol: float, precond, dot=_dot):
     """Preconditioned CG for ``iters`` iterations. An iteration that starts
     with ||r|| <= tol, and every one after it, leaves the state unchanged
     (``torch.where`` on a device flag): the values of an early exit, with
     no host read inside the loop. ``dot``: the inner product (a sum over
-    every rank's block, for vertex-sharded state). ``stop_early`` ends the
-    loop at the first such iteration, for one host read an iteration: the
-    sharded solvers use it, as every rank reads the same all-reduced flag
-    and the iterations they skip would each cost collectives."""
+    every rank's block, for vertex-sharded state)."""
     x = x0
     r = b - matvec(x0)
     z = precond(r)
@@ -344,8 +340,6 @@ def _cg(matvec, b, x0, iters: int, tol: float, precond, dot=_dot,
     active = torch.ones((), dtype=torch.bool, device=b.device)
     for _ in range(iters):
         active = active & (torch.sqrt(dot(r, r)) > tol)
-        if stop_early and not bool(active):
-            break
         Ap = matvec(p)
         alpha = rz / dot(p, Ap).clamp_min(1e-20)
         x_n = x + alpha * p

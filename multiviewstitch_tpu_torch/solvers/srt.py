@@ -7,10 +7,10 @@ batch [...].
 
 RANSAC is split in two so the scorer can be held against the JAX package
 on the same hypotheses: ``sample_triples`` draws index triples (top-3 of
-the stream's uniforms over the valid mask: uniform sampling without
+the stream's 32-bit draws over the valid mask: uniform sampling without
 replacement), and ``estimate_srt_from_triples`` scores them.
 
-The random stream is counter-based: a match's uniform is an integer hash
+The random stream is counter-based: a match's draw is an integer hash
 of (seed, sequence pair, edge id, round, hypothesis, match), so an edge
 draws the same hypotheses whatever other edges share its batch, on any
 rank of a sharded sweep and on the CPU and the card alike (the role of the
@@ -166,19 +166,11 @@ def stream_bits(stream: RansacStream, round_: int, n_hyp: int, m: int):
     return _hash32(k[..., None] ^ j)
 
 
-def stream_uniforms(stream: RansacStream, round_: int, n_hyp: int, m: int):
-    """The stream's float32 uniforms in (0, 1): the top 24 bits of
-    ``stream_bits``, (k + 0.5) / 2^24 (rounded to float32, so 1.0 can
-    occur at the top)."""
-    bits = stream_bits(stream, round_, n_hyp, m) >> 8
-    return (bits.to(torch.float32) + 0.5) * (1.0 / (1 << 24))
-
-
 def sample_triples(mask, iter_num: int, stream: RansacStream, round_: int):
     """[...,iter_num,3] int64 indices: per hypothesis, 3 distinct valid
-    matches drawn uniformly, as the top 3 of the stream's draws over the
-    valid mask (the uniforms' order, ties broken by their low 8 bits, so
-    no tie is left to the sort)."""
+    matches drawn uniformly, as the top 3 of the stream's 32-bit draws
+    over the valid mask (the draws of one hypothesis all differ, so no tie
+    is left to the sort)."""
     bits = stream_bits(stream, round_, iter_num, mask.shape[-1])
     g = torch.where(mask[..., None, :], bits, torch.full_like(bits, -1))
     return torch.topk(g, 3, dim=-1).indices

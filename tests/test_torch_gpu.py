@@ -127,6 +127,17 @@ def nccl_mesh(cuda):
     mesh.close()
 
 
+def test_mesh_collectives_on_one_nccl_rank(cuda, nccl_mesh):
+    """all_reduce and all_gather (a bool tensor sent as bytes) run on NCCL
+    at world size 1 and return their input."""
+    from multiviewstitch_tpu_torch.parallel.mesh import (all_reduce_sum,
+                                                         gather_along)
+    x = torch.arange(6.0, device=cuda)
+    assert torch.equal(all_reduce_sum(nccl_mesh, x.clone()), x)
+    flags = x > 2.0
+    assert torch.equal(gather_along(nccl_mesh, flags), flags)
+
+
 @pytest.mark.parametrize("halo", [1, 2])
 def test_windowed_filter_on_one_nccl_rank(cuda, nccl_mesh, halo):
     """World size 1 over NCCL: the window is the whole sequence, K1 runs

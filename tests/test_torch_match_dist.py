@@ -84,8 +84,9 @@ def sharded(preps, seqs):
         m.close()
     out[2] = pmesh.run_spmd(pmesh.spmd_calls, 2, [
         sweep, (align_sequences, (seqs, CFG), dict(seed=0)),
-        (align_sequences, (seqs, CFG), dict(seed=0, refine="ba"))])
-    out[3] = pmesh.run_spmd(pmesh.spmd_calls, 3, [sweep])
+        (align_sequences, (seqs, CFG), dict(seed=0, refine="ba"))],
+        device="cpu")
+    out[3] = pmesh.run_spmd(pmesh.spmd_calls, 3, [sweep], device="cpu")
     return out
 
 
@@ -101,9 +102,11 @@ def test_stream_is_the_same_draw_in_every_rank_block(world):
         eid = torch.arange(r * b, (r + 1) * b).clamp_max(E - 1)
         got = srt.stream_bits(srt.RansacStream(KEY, eid), 1, 16, 40)
         assert torch.equal(got, full[eid])
-    u = srt.stream_uniforms(srt.RansacStream(KEY, torch.arange(E)), 1, 16, 40)
-    assert u.dtype == torch.float32 and 0 < float(u.min())
-    assert float(u.max()) <= 1.0 and abs(float(u.mean()) - 0.5) < 0.02
+    assert full.dtype == torch.int64 and int(full.min()) >= 0
+    assert int(full.max()) < 1 << 32
+    s = full.sort(-1).values            # one hypothesis' draws all differ
+    assert bool((s[..., 1:] > s[..., :-1]).all())
+    assert abs(float(full.double().mean()) / 2 ** 32 - 0.5) < 0.02
 
 
 @pytest.mark.parametrize("world", [1, 2, 3])

@@ -152,7 +152,7 @@ def _calls(inputs, world):
 def ranks(inputs):
     """{world: [per-rank results of _calls]}, one run_spmd per world."""
     return {world: pmesh.run_spmd(pmesh.spmd_calls, world,
-                                  _calls(inputs, world))
+                                  _calls(inputs, world), device="cpu")
             for world in WORLDS}
 
 
@@ -183,6 +183,26 @@ def test_mesh_helpers_on_one_gloo_rank():
     assert not torch.distributed.is_initialized()
 
 
+def test_helpers_run_their_collective_at_world_size_1(monkeypatch):
+    """No short cut at one rank: a world-size-1 group (NCCL on the card)
+    runs every collective the layer makes."""
+    calls = []
+    for name in ("all_reduce", "all_gather"):
+        real = getattr(torch.distributed, name)
+        monkeypatch.setattr(torch.distributed, name,
+                            lambda *a, _f=real, _n=name, **k:
+                            calls.append(_n) or _f(*a, **k))
+    m = pmesh.make_mesh(device="cpu")
+    try:
+        x = torch.arange(6.0)
+        assert torch.equal(pmesh.all_reduce_sum(m, x.clone()), x)
+        flags = x > 2.0
+        assert torch.equal(pmesh.gather_along(m, flags), flags)
+    finally:
+        m.close()
+    assert calls == ["all_reduce", "all_gather"]
+
+
 def test_pad_to_multiple_and_window_spec():
     p, n = pmesh.pad_to_multiple(np.arange(10), 8)
     assert p.shape[0] == 16 and n == 10
@@ -207,7 +227,7 @@ def test_make_mesh_on_cuda_needs_a_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         pmesh.make_mesh()
     with pytest.raises(RuntimeError, match="CUDA"):
-        pmesh.run_spmd(pmesh.spmd_calls, 1, [], device="cuda")
+        pmesh.run_spmd(pmesh.spmd_calls, 1, [])   # the card by default
 
 
 def test_a_failing_rank_raises_with_its_traceback(inputs):
@@ -216,7 +236,7 @@ def test_a_failing_rank_raises_with_its_traceback(inputs):
                        inputs["w"], inputs["h"])
     with pytest.raises(RuntimeError, match="halo 3 must lie in 1..2"):
         pmesh.run_spmd(view_windows.check_consistency_sharded, 2, d, cams,
-                       halo=3, **KW)
+                       halo=3, device="cpu", **KW)
 
 
 # --- the windowed consistency filter -----------------------------------------
