@@ -60,8 +60,9 @@ Phases, in order (any failure raises and the exit code is non-zero):
      per-stage synced wall times, the Poisson stage's peak device memory,
      the grid and the mesh sizes; the ingest must read the raw depth
      through the native library; the depth-10 run's Poisson stage runs
-     under torch.profiler (device busy share, and each step's host span
-     and device time from the ``poisson.*`` record_function ranges);
+     under torch.profiler with the port's spans recorded (device busy
+     share, and each step's host span and device time from the
+     ``mvs.poisson.*`` ranges);
      then a warm pass at psn_dpt_max 8 (256^3, whole-grid extraction);
      Model.obj's vertex count must equal the exact largest component
      (scipy's connected_components, counted here) of the depth-10 mesh,
@@ -144,6 +145,7 @@ from multiviewstitch_tpu_torch.cli import (  # noqa: E402
 from multiviewstitch_tpu_torch.config import StitchConfig  # noqa: E402
 from multiviewstitch_tpu_torch.kernels import _build  # noqa: E402
 from multiviewstitch_tpu_torch.ops import rasterizer as tr  # noqa: E402
+from multiviewstitch_tpu_torch.utils import profiling  # noqa: E402
 
 CFG = demo_config().replace(max_keypoints=512)    # config-2
 W, H, N_FRAMES, GRID = 640, 480, 5, 256
@@ -226,7 +228,7 @@ def phase_build():
     path = _build.build(verbose=True)
     _build.load()
     log(f"build: {path} in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {'ran' if _build.build_seconds else 'cached'})")
+        f"(nvcc {'ran' if profiling.counters('kernels.built') else 'cached'})")
     t0 = time.perf_counter()          # the ingest's reader, built here so
     ok = native_loader.native_available()       # ingest_s is all reading
     log(f"build: native IO {native_loader.library_path()} in "
@@ -659,16 +661,17 @@ def phase_noise_refine(dev):
             "synced): " + ", ".join(f"{k} {v:.4f}" for k, v in t.items()))
 
 
-# record_function ranges of ops/poisson.reconstruct_poisson's steps
-POISSON_STEPS = ("poisson.field", "poisson.dilate", "poisson.extract")
+# the profiler ranges of ops/poisson.reconstruct_poisson's step spans
+POISSON_STEPS = ("mvs.poisson.field", "mvs.poisson.dilate",
+                 "mvs.poisson.extract")
 
 
 def device_events(prof):
     """The device-side events (kernels, memcpys, memsets) of a profile,
-    without the device-side copies of the record_function ranges."""
+    without the device-side copies of the spans' ranges."""
     return [e for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.name not in POISSON_STEPS]
+            and not e.name.startswith(profiling.RANGE_PREFIX)]
 
 
 def device_busy_us(prof):
@@ -832,7 +835,9 @@ def config_run(dev, config, workdir, depth, profile_poisson=False):
             str(dev), "--force"]
     if depth is not None:
         argv += ["--set", f"psn_dpt_max={depth}"]
-    rc = main(argv, stage=stage)
+    with (profiling.recording() if profile_poisson
+          else contextlib.nullcontext()):
+        rc = main(argv, stage=stage)
     assert rc == 0, f"cli align --config returned {rc}"
     return t, outs, (profs[0] if profs else None)
 
@@ -891,7 +896,7 @@ def exact_largest_component(verts, faces):
 def log_poisson_profile(prof, wall, depth):
     """Device busy share of a profiled Poisson stage, and each step's host
     span and the device time of the kernels it launched (its
-    record_function range)."""
+    profiler range)."""
     busy, n = device_busy_us(prof)
     log(f"profile poisson_s at depth {depth}: wall {wall:.4f} s "
         f"(profiled), device busy {busy / 1e6:.4f} s "

@@ -27,8 +27,20 @@ writes the chosen pairs' match dumps to <workdir>/Match; with
 MVS_DEBUG_NUMERICS=1 in the environment ``align`` checks the pose chain
 and the reconstructed mesh for non-finite values. The flags are those of
 ``multiviewstitch_tpu.cli`` plus --device (default cuda; there is no
-fallback to the CPU). The bench command is not ported: it exits with a
-message and code 2.
+fallback to the CPU) and --trace. The bench command is not ported: it
+exits with a message and code 2.
+
+``--trace DIR`` runs the command under torch.profiler with the program's
+spans recorded (``utils/profiling.py``) and writes DIR/trace.json (the
+Chrome trace: each span as an ``mvs.<name>`` range beside the card's
+kernels) and DIR/spans.json (each span's seconds, self seconds and parent,
+and the counters the command moved). The spans: ``job`` (the command; its
+self time is the glue between stages), ``stage.<name>`` for each stage
+(``prep``, ``sweep_solve``, ``fuse``, ``poisson``, ``trim_write``, ...),
+``manifest.hash_inputs`` and ``manifest.mark_done``,
+``trim.largest_component``, ``io.write_srt``, ``io.write_npts``,
+``io.write_obj``, ``poisson.field`` / ``dilate`` / ``extract`` / ``slab``
+/ ``weld``, ``kernels.build`` and ``io.native_build``.
 """
 
 from __future__ import annotations
@@ -41,6 +53,9 @@ import time
 
 import numpy as np
 import torch
+
+from .utils import profiling
+from .utils.profiling import count, span
 
 # commands of the JAX CLI this port does not implement yet (refused, never
 # silently ignored)
@@ -112,6 +127,18 @@ def _apply_overrides(cfg, overrides):
 
 def _call(name, fn):
     return fn()
+
+
+def _spanned(stage):
+    """``stage`` with each step's work inside the span ``stage.<name>``
+    (``_s`` dropped), opened inside the callable the hook runs, so a hook's
+    own work around it stays outside the span."""
+    def spanned(name, fn):
+        def run():
+            with span("stage." + name.removesuffix("_s")):
+                return fn()
+        return stage(name, run)
+    return spanned
 
 
 def write_frame_meshes(seqs, cfg, models_dir: str):
@@ -204,7 +231,10 @@ def run_align(seqs, cfg, grid: int, result_dir: str, stage=_call, *,
         _log(f"AllSeqProj trim: {n_before} -> {len(verts)} verts")
 
     def trim_write():
-        v, f, _ = retain_largest_component(verts, faces)
+        with span("trim.largest_component"):
+            v, f, _ = retain_largest_component(verts, faces)
+        count("trim.vertices_in", len(verts))
+        count("trim.vertices_kept", len(v))
         save_srt(os.path.join(result_dir, "SRT.txt"), result.transforms)
         write_npts(os.path.join(result_dir, "PSR.npts"), pts, nrm)
         write_obj(os.path.join(result_dir, "Model.obj"), v, None, f)
@@ -253,10 +283,12 @@ def cmd_align(args, stage=_call) -> int:
     write_mesh = args.write_mesh or cfg.write_mesh
     opts = (f"{args.grid}:{args.backend}:{args.write_mesh}:{args.refine}:"
             f"{args.device}")
-    in_hash = hash_arrays(
-        cfg=np.frombuffer(repr(cfg).encode(), dtype=np.uint8),
-        opts=np.frombuffer(opts.encode(), dtype=np.uint8),
-        **{f"d{i}": s.disparity.cpu().numpy() for i, s in enumerate(seqs)})
+    with span("manifest.hash_inputs"):
+        in_hash = hash_arrays(
+            cfg=np.frombuffer(repr(cfg).encode(), dtype=np.uint8),
+            opts=np.frombuffer(opts.encode(), dtype=np.uint8),
+            **{f"d{i}": s.disparity.cpu().numpy()
+               for i, s in enumerate(seqs)})
     if manifest.is_done("align", in_hash) and not args.force:
         _log("align stage up to date (manifest hash match) — skipping; "
              "pass --force to recompute")
@@ -277,12 +309,13 @@ def cmd_align(args, stage=_call) -> int:
         models_dir=models_dir, refine=args.refine or False,
         debug_dir=debug_dir,
         check_numerics=os.environ.get("MVS_DEBUG_NUMERICS") == "1")
-    manifest.mark_done("align", [os.path.join(result_dir, f)
-                                 for f in ("SRT.txt", "PSR.npts",
-                                           "Model.obj")],
-                       input_hash=in_hash,
-                       metrics={"points": len(pts), "verts": len(verts),
-                                "faces": len(faces)})
+    with span("manifest.mark_done"):
+        manifest.mark_done("align", [os.path.join(result_dir, f)
+                                     for f in ("SRT.txt", "PSR.npts",
+                                               "Model.obj")],
+                           input_hash=in_hash,
+                           metrics={"points": len(pts), "verts": len(verts),
+                                    "faces": len(faces)})
     _log(f"align done in {time.perf_counter() - t0:.1f}s")
     return 0
 
@@ -433,6 +466,25 @@ def _not_ported(args) -> int:
     return 2
 
 
+def _run(args, stage) -> int:
+    """The command inside its ``job`` span, each stage in its span."""
+    with span(profiling.JOB, cmd=args.cmd):
+        return args.fn(args, _spanned(stage))
+
+
+def _run_traced(args, stage) -> int:
+    """``_run`` under torch.profiler with spans recorded; writes
+    trace.json and spans.json into ``args.trace``."""
+    with profiling.recording() as rec:
+        n_before = len(rec.jobs())
+        with profiling.trace(args.trace):
+            rc = _run(args, stage)
+        profiling.write_spans(os.path.join(args.trace, profiling.SPANS_FILE),
+                              rec.jobs()[n_before:])
+    _log(f"trace and spans written to {args.trace}")
+    return rc
+
+
 def main(argv=None, stage=_call) -> int:
     """Parse ``argv`` and run the command; ``stage`` as in ``run_align``,
     ``run_deform`` and ``run_render``."""
@@ -449,6 +501,11 @@ def main(argv=None, stage=_call) -> int:
                         help="override any StitchConfig field")
     common.add_argument("--device", default="cuda",
                         help="torch device (default cuda; no CPU fallback)")
+    common.add_argument("--trace", default=None, metavar="DIR",
+                        help="profile the command and record its spans: "
+                             "writes DIR/trace.json (Chrome trace, spans "
+                             "as mvs.<name> ranges) and DIR/spans.json "
+                             "(span seconds and counters)")
 
     align = argparse.ArgumentParser(add_help=False)
     align.add_argument("--grid", type=int, default=None,
@@ -493,7 +550,9 @@ def main(argv=None, stage=_call) -> int:
         return _not_ported(args)
     if extra:
         ap.error(f"unrecognized arguments: {' '.join(extra)}")
-    return args.fn(args, stage)
+    if args.trace:
+        return _run_traced(args, stage)
+    return _run(args, stage)
 
 
 if __name__ == "__main__":

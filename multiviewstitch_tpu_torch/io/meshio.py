@@ -9,12 +9,19 @@ Host-side numpy equivalents of the reference's ``PlyObj/PlyObj.{h,cpp}``:
   - OBJ write: interleaved vn+v then faces (PlyObj.cpp:77-137)
   - NPTS: one oriented point per line ``x y z nx ny nz`` as written by the
     reference's point sampler and read back at Processor.cpp:952-964.
-Vertex/face arrays are numpy.
+Vertex/face arrays are numpy. Each writer runs as a span (``io.write_obj``,
+``io.write_npts``) and counts its bytes (``io.bytes.<file name>``) and
+rows (``io.vertices`` and ``io.faces``; ``io.points``) with
+``utils.profiling``.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+
+from ..utils.profiling import count, span
 
 
 def read_obj(path: str):
@@ -47,8 +54,17 @@ def write_obj(path: str, verts, normals=None, faces=None, colors=None):
     ``f a//a b//b c//c`` like the reference (PlyObj.cpp:98-136); with colors,
     appends r g b to each ``v`` line (colored-point export,
     PlyObj.h:358-390)."""
+    name = os.path.basename(path)
+    with span("io.write_obj", file=name):
+        _write_obj(path, verts, normals, faces, colors)
+        count("io.bytes." + name, os.path.getsize(path))
+
+
+def _write_obj(path, verts, normals, faces, colors):
     verts = np.asarray(verts)
     faces = None if faces is None or len(faces) == 0 else np.asarray(faces)
+    count("io.vertices", len(verts))
+    count("io.faces", 0 if faces is None else len(faces))
     with open(path, "w") as f:
         if normals is not None and len(normals) == len(verts):
             normals = np.asarray(normals)
@@ -80,6 +96,10 @@ def read_npts(path: str):
 def write_npts(path: str, points, normals):
     """Write oriented points in the reference's npts format
     (Result/PSR.npts writer, Processor.cpp:1033-1040)."""
-    pts = np.asarray(points, np.float32)
-    nrm = np.asarray(normals, np.float32)
-    np.savetxt(path, np.concatenate([pts, nrm], axis=1), fmt="%.8g")
+    name = os.path.basename(path)
+    with span("io.write_npts", file=name):
+        pts = np.asarray(points, np.float32)
+        nrm = np.asarray(normals, np.float32)
+        np.savetxt(path, np.concatenate([pts, nrm], axis=1), fmt="%.8g")
+        count("io.points", len(pts))
+        count("io.bytes." + name, os.path.getsize(path))

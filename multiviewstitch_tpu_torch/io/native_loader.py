@@ -8,8 +8,9 @@ git-ignored ``_build/`` directory beside the package (keyed on the
 source, the flags and the host CPU's features). Where it cannot be built
 or loaded, every function takes its numpy counterpart, as the JAX
 package's do; ``native_available()`` says which, and ``read_counts()``
-counts the raw batches each reader served, so a run can show which one
-ran. Host IO only: no device kernel.
+(a view of the counters ``io.native_reads.<reader>``) counts the raw
+batches each reader served, so a run can show which one ran. The build
+runs as the span ``io.native_build``. Host IO only: no device kernel.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..utils.profiling import count, counters, reset_counters, span
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "csrc", "mvs_io.cpp")
 _BUILD_ROOT = os.path.join(_PKG, "_build")
@@ -32,7 +35,7 @@ GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-pthread")
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
-_reads = {"native": 0, "numpy": 0}
+READS = "io.native_reads."      # the read counters' prefix
 
 
 def _cpu_tag() -> bytes:
@@ -56,13 +59,14 @@ def library_path() -> str:
 def _build() -> str:
     """Compile the library if it is not there (to a temporary name, then
     renamed, so a concurrent build never loads a partial file)."""
-    out = library_path()
-    if not os.path.exists(out):
-        os.makedirs(os.path.dirname(out), exist_ok=True)
-        tmp = f"{out}.{os.getpid()}.tmp"
-        subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, _SRC], check=True,
-                       capture_output=True, timeout=120)
-        os.replace(tmp, out)
+    with span("io.native_build"):
+        out = library_path()
+        if not os.path.exists(out):
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            tmp = f"{out}.{os.getpid()}.tmp"
+            subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, _SRC], check=True,
+                           capture_output=True, timeout=120)
+            os.replace(tmp, out)
     return out
 
 
@@ -99,19 +103,16 @@ def native_available() -> bool:
 def read_counts() -> dict:
     """Raw batches read by each reader ("native", "numpy") since the last
     reset (a copy)."""
-    with _lock:
-        return dict(_reads)
+    c = counters(READS)
+    return {k: c.get(READS + k, 0) for k in ("native", "numpy")}
 
 
 def reset_read_counts():
-    with _lock:
-        for k in _reads:
-            _reads[k] = 0
+    reset_counters(READS)
 
 
 def _count(reader: str):
-    with _lock:
-        _reads[reader] += 1
+    count(READS + reader)
 
 
 def _ptr(a: np.ndarray) -> int:

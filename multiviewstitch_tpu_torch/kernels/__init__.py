@@ -3,7 +3,8 @@
 Each wrapper checks device, dtype, shape and contiguity, allocates its
 outputs with ``torch.empty``, launches on PyTorch's current stream, raises
 on the launcher's ``cudaGetLastError()`` code, and adds one to its launch
-count (once per call, however many CUDA kernels the call runs). The plain
+counter ``kernels.launch.<kernel>`` (``utils.profiling.count``; once per
+call, however many CUDA kernels the call runs). The plain
 PyTorch version of each kernel lives beside its caller in ``ops/``
 (``check_consistency_reference``, ``sample_oriented_points_reference``,
 ``raster_reference``); the public ops take it only for tensors on the CPU.
@@ -21,21 +22,22 @@ import ctypes
 
 import torch
 
+from ..utils.profiling import count, counters, reset_counters
 from . import _build
 
 KERNELS = ("consistency", "oriented_points", "raster")
-_launches = {k: 0 for k in KERNELS}
+LAUNCH = "kernels.launch."       # the launch counters' prefix
 raster_pairs = None   # (face, tile) pairs K3 binned in its last call
 
 
 def launch_counts() -> dict:
     """Launches per kernel since the last reset (a copy)."""
-    return dict(_launches)
+    c = counters(LAUNCH)
+    return {k: c.get(LAUNCH + k, 0) for k in KERNELS}
 
 
 def reset_launch_counts():
-    for k in _launches:
-        _launches[k] = 0
+    reset_counters(LAUNCH)
 
 
 def _stream(t: torch.Tensor):
@@ -106,7 +108,7 @@ def consistency(disparity: torch.Tensor, K: torch.Tensor, R: torch.Tensor,
         float(max_dsp), float(reproj_err) * float(reproj_err),
         _stream(disparity))
     _build.check(lib, err, "consistency")
-    _launches["consistency"] += 1
+    count(LAUNCH + "consistency")
     return out
 
 
@@ -140,7 +142,7 @@ def oriented_points(disparity: torch.Tensor, K: torch.Tensor,
         float(min_dsp), float(max_dsp), float(dsp_err), float(conf_min),
         _stream(disparity))
     _build.check(lib, err, "oriented_points")
-    _launches["oriented_points"] += 1
+    count(LAUNCH + "oriented_points")
     return points, normals, conf, valid
 
 
@@ -224,5 +226,5 @@ def raster(uvz: torch.Tensor, faces: torch.Tensor, face_ok: torch.Tensor,
                              "the int32 bin index")
         _raster_launch(lib, uvz, faces, face_ok, zbuf, n_bins, total, stream)
     raster_pairs = total
-    _launches["raster"] += 1
+    count(LAUNCH + "raster")
     return zbuf

@@ -11,6 +11,9 @@ Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` — without it
 nvcc contracts ``a*b+c`` into one fused multiply-add, while each PyTorch
 elementwise op rounds on its own, which moves ``floor(x+0.5)`` ties and
 edge-function signs at exactly zero between a kernel and its plain version.
+
+``build`` runs as the span ``kernels.build`` and counts ``kernels.built``
+when this process ran nvcc (``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -21,7 +24,8 @@ import os
 import shutil
 import subprocess
 import threading
-import time
+
+from ..utils.profiling import count, span
 
 _CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
@@ -52,7 +56,6 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
-build_seconds = None      # wall time of the build in this process (None: cached)
 
 
 def _sources():
@@ -108,10 +111,14 @@ def build(verbose: bool = False) -> str:
     one nvcc process per source, all started together, then one link.
     ``verbose`` prints ptxas's register and spill report. Returns the
     library path."""
-    global build_seconds
-    out = library_path()
-    if os.path.exists(out):
-        return out
+    with span("kernels.build"):
+        out = library_path()
+        if not os.path.exists(out):
+            _compile(out, verbose)
+    return out
+
+
+def _compile(out: str, verbose: bool):
     nvcc = _nvcc()
     tmp = f"{out}.{os.getpid()}.tmp"
     os.makedirs(tmp, exist_ok=True)
@@ -119,7 +126,6 @@ def build(verbose: bool = False) -> str:
     objs = [os.path.join(tmp, os.path.basename(p) + ".o") for p in cus]
     lib = os.path.join(tmp, "lib.so")
     ptxas = ["-Xptxas=-v"] if verbose else []
-    t0 = time.perf_counter()
     try:
         _run_all([[nvcc, *NVCC_FLAGS, *ptxas, "-c", src, "-o", obj]
                   for src, obj in zip(cus, objs)], verbose)
@@ -127,8 +133,7 @@ def build(verbose: bool = False) -> str:
         os.replace(lib, out)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    build_seconds = time.perf_counter() - t0
-    return out
+    count("kernels.built")
 
 
 def load():

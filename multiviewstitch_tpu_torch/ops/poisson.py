@@ -27,9 +27,13 @@ Nothing in the solvers reads a value back to the host.
 Above grid 256 the surface is extracted in overlapping Z-slabs (each face
 owned by exactly one slab; duplicated halo vertices are welded on the host
 by integer cell key). Unlike the JAX package, the extraction has no vertex
-or face capacity, so no mesh is truncated. The three steps (field,
-dilation, extraction) run under ``torch.profiler.record_function`` ranges
-``poisson.field``, ``poisson.dilate`` and ``poisson.extract``.
+or face capacity, so no mesh is truncated. The three steps run as the
+spans ``poisson.field``, ``poisson.dilate`` and ``poisson.extract``
+(``utils.profiling``); inside the extraction each slab (its surface nets
+and the copy to the host) is a ``poisson.slab`` span and the host weld a
+``poisson.weld`` span. Counters: ``poisson.vcycles``, ``poisson.slabs``,
+``poisson.slab_vertices`` (into the weld) and ``poisson.vertices`` (the
+extracted mesh's).
 """
 
 from __future__ import annotations
@@ -38,8 +42,8 @@ from typing import Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from ..utils.profiling import count, span
 from .tsdf import TSDF, surface_nets
 
 
@@ -222,6 +226,7 @@ def poisson_field(points, normals, valid, origin, spacing, *,
         x = torch.zeros_like(b)
         for _ in range(vcycles):
             _vcycle(x, b, screen)
+        count("poisson.vcycles", vcycles)
     else:
         x = _cg(b, screen, cg_iters)
     del b
@@ -279,36 +284,41 @@ def _extract_mesh_slabs(field, occ, origin, spacing, slab: int = 64,
         hi = min(z1 + 1, n_cells) + 1                # +1: corner layer
         sub_origin = np.asarray(origin_np, np.float32).copy()
         sub_origin[2] += lo * float(spacing)         # z offset (x,y,z)
-        v, f, c = _extract_mesh(field[lo:hi], occ[lo:hi],
-                                torch.as_tensor(sub_origin,
-                                                device=field.device),
-                                spacing)
-        if len(f) == 0:
-            continue
-        c = c.astype(np.int64)
-        c[:, 0] += lo                                # global cell z
-        # own faces whose min global cell z lies in [z0, z1)
-        fz = c[f][:, :, 0].min(1)
-        keep = (fz >= z0) & (fz < z1) if z1 < n_cells else (fz >= z0)
-        f = f[keep]
-        base = sum(len(x) for x in all_v)
-        all_v.append(v)
-        all_c.append(c)
-        all_f.append(f + base)
+        count("poisson.slabs")
+        with span("poisson.slab", z0=z0):
+            v, f, c = _extract_mesh(field[lo:hi], occ[lo:hi],
+                                    torch.as_tensor(sub_origin,
+                                                    device=field.device),
+                                    spacing)
+            if len(f) == 0:
+                continue
+            c = c.astype(np.int64)
+            c[:, 0] += lo                            # global cell z
+            # own faces whose min global cell z lies in [z0, z1)
+            fz = c[f][:, :, 0].min(1)
+            keep = (fz >= z0) & (fz < z1) if z1 < n_cells else (fz >= z0)
+            f = f[keep]
+            base = sum(len(x) for x in all_v)
+            all_v.append(v)
+            all_c.append(c)
+            all_f.append(f + base)
     if not all_v:
         return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64)
-    V = np.concatenate(all_v)
-    C = np.concatenate(all_c)
-    F = np.concatenate(all_f)
-    # weld halo duplicates by exact global cell key
-    uniq, inv = np.unique(C, axis=0, return_inverse=True)
-    inv = inv.reshape(-1)
-    first = np.zeros(len(uniq), np.int64)
-    first[inv[::-1]] = np.arange(len(V))[::-1]       # first occurrence
-    Vw = V[first]
-    Fw = inv[F]
-    good = (Fw[:, 0] != Fw[:, 1]) & (Fw[:, 1] != Fw[:, 2]) & \
-        (Fw[:, 0] != Fw[:, 2])
+    with span("poisson.weld"):
+        V = np.concatenate(all_v)
+        C = np.concatenate(all_c)
+        F = np.concatenate(all_f)
+        # weld halo duplicates by exact global cell key
+        uniq, inv = np.unique(C, axis=0, return_inverse=True)
+        inv = inv.reshape(-1)
+        first = np.zeros(len(uniq), np.int64)
+        first[inv[::-1]] = np.arange(len(V))[::-1]   # first occurrence
+        Vw = V[first]
+        Fw = inv[F]
+        good = (Fw[:, 0] != Fw[:, 1]) & (Fw[:, 1] != Fw[:, 2]) & \
+            (Fw[:, 0] != Fw[:, 2])
+    count("poisson.slab_vertices", len(V))
+    count("poisson.vertices", len(Vw))
     if return_cells:
         return Vw.astype(np.float32), Fw[good], C[first]
     return Vw.astype(np.float32), Fw[good]
@@ -328,26 +338,28 @@ def reconstruct_poisson(points: np.ndarray, normals: np.ndarray, *,
     grid = 1 << depth
     mins = points.min(0)
     maxs = points.max(0)
-    span = (maxs - mins).max()
-    mins = mins - margin * span
-    spacing = float((maxs - mins + margin * span).max() / (grid - 1))
+    extent = (maxs - mins).max()
+    mins = mins - margin * extent
+    spacing = float((maxs - mins + margin * extent).max() / (grid - 1))
     f32 = dict(dtype=torch.float32, device=device)
     origin = torch.as_tensor(mins, **f32)
 
     pts = torch.as_tensor(points, **f32)
-    with record_function("poisson.field"):
+    with span("poisson.field"):
         field, wgt = poisson_field(
             pts, torch.as_tensor(normals, **f32),
             torch.ones(len(points), dtype=torch.bool, device=device), origin,
             spacing, grid=grid, cg_iters=cg_iters, solver=solver,
             vcycles=vcycles)
-    with record_function("poisson.dilate"):
+    with span("poisson.dilate"):
         occ = _dilate_occupancy(wgt, support_radius)
     del wgt
 
-    with record_function("poisson.extract"):
+    with span("poisson.extract"):
         if grid <= 256:
-            return _extract_mesh(field, occ, origin, spacing)[:2]
+            v, f, _ = _extract_mesh(field, occ, origin, spacing)
+            count("poisson.vertices", len(v))
+            return v, f
         # thinner slabs past 512: the per-slab work arrays scale with
         # slab * G^2 and sit next to the field
         return _extract_mesh_slabs(field, occ, origin, spacing,

@@ -1,57 +1,13 @@
-"""Structured logging + per-stage metrics.
+"""Geometry-quality metrics (point-to-surface RMSE, trajectory ATE).
 
-A copy of ``multiviewstitch_tpu/utils/metrics.py`` (numpy only).
-The reference's observability is cout prints with __FILE__/__LINE__
-(SURVEY §5.5). Here each pipeline stage emits a metrics dict (match counts,
-inlier ratios, residuals, RMSE, timings) collected by a MetricsLogger that
-writes JSONL alongside artifacts, plus geometry-quality metrics used by the
-BASELINE harness (point-to-surface RMSE, trajectory ATE).
+The port's copy of those in ``multiviewstitch_tpu/utils/metrics.py``
+(numpy only). The port's spans and counters are in ``utils/profiling.py``.
 """
 
 from __future__ import annotations
 
-import json
-import os
-import time
-from contextlib import contextmanager
-from typing import Dict, Optional
-
 import numpy as np
 
-
-class MetricsLogger:
-    def __init__(self, path: Optional[str] = None, echo: bool = True):
-        self.path = path
-        self.echo = echo
-        self.records = []
-        if path:
-            os.makedirs(os.path.dirname(os.path.abspath(path)),
-                        exist_ok=True)
-
-    def log(self, stage: str, **metrics):
-        rec = {"stage": stage, "time": time.time()}
-        rec.update({k: (float(v) if isinstance(v, (int, float, np.floating,
-                                                   np.integer)) else v)
-                    for k, v in metrics.items()})
-        self.records.append(rec)
-        if self.echo:
-            kv = " ".join(f"{k}={v}" for k, v in rec.items()
-                          if k not in ("stage", "time"))
-            print(f"[mvs:{stage}] {kv}", flush=True)
-        if self.path:
-            with open(self.path, "a") as f:
-                f.write(json.dumps(rec) + "\n")
-
-    @contextmanager
-    def timed(self, stage: str, **extra):
-        t0 = time.perf_counter()
-        yield
-        self.log(stage, wall_s=time.perf_counter() - t0, **extra)
-
-
-# ---------------------------------------------------------------------------
-# geometry-quality metrics (BASELINE harness)
-# ---------------------------------------------------------------------------
 
 def point_to_surface_rmse(points: np.ndarray, surface_points: np.ndarray,
                           chunk: int = 4096) -> float:

@@ -120,7 +120,7 @@ def test_debug_artifacts_config_writes_into_cwd_match(tmp_path, monkeypatch):
     assert not (tmp_path / "work" / "Match").exists()
 
 
-def test_metrics_equal_jax(tmp_path):
+def test_metrics_equal_jax():
     rng = np.random.default_rng(0)
     pts = rng.normal(size=(300, 3)).astype(np.float32)
     surf = rng.normal(size=(500, 3)).astype(np.float32)
@@ -131,16 +131,3 @@ def test_metrics_equal_jax(tmp_path):
         rng.normal(size=(12, 3)) * 0.01
     assert metrics.trajectory_ate(est, gt) == jmetrics.trajectory_ate(est, gt)
     assert metrics.trajectory_ate(est, gt) < 0.05
-    paths = [str(tmp_path / f"{k}.jsonl") for k in ("port", "jax")]
-    for mod, path in zip((metrics, jmetrics), paths):
-        log = mod.MetricsLogger(path, echo=False)
-        log.log("align", matches=np.int64(40), rmse=np.float32(0.5), tag="a")
-        with log.timed("fuse", points=3):
-            pass
-    recs = []
-    for path in paths:
-        import json
-        with open(path) as f:
-            recs.append([{k: v for k, v in json.loads(line).items()
-                          if k not in ("time", "wall_s")} for line in f])
-    assert recs[0] == recs[1] and len(recs[0]) == 2
