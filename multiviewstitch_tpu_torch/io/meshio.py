@@ -9,10 +9,17 @@ Host-side numpy equivalents of the reference's ``PlyObj/PlyObj.{h,cpp}``:
   - OBJ write: interleaved vn+v then faces (PlyObj.cpp:77-137)
   - NPTS: one oriented point per line ``x y z nx ny nz`` as written by the
     reference's point sampler and read back at Processor.cpp:952-964.
-Vertex/face arrays are numpy. Each writer runs as a span (``io.write_obj``,
-``io.write_npts``) and counts its bytes (``io.bytes.<file name>``) and
-rows (``io.vertices`` and ``io.faces``; ``io.points``) with
-``utils.profiling``.
+Vertex/face arrays are numpy. The writers write through the native
+library's threaded text writers (``io.native_loader.write_obj_native`` /
+``write_npts_native``, built from ``csrc/mvs_io.cpp``), which give the
+same bytes: a float of a ``v`` / ``vn`` / colour field prints as
+``f"{x}"`` of its numpy scalar (``repr`` of the value widened to double),
+an integer in decimal, an NPTS value as ``"%.8g"``. Where the library,
+its writers or an array's dtype are not covered, the Python loops below
+write the file (``io.native_loader.write_counts()`` says which ran). Each
+writer runs as a span (``io.write_obj``, ``io.write_npts``) and counts its
+bytes (``io.bytes.<file name>``) and rows (``io.vertices`` and
+``io.faces``; ``io.points``) with ``utils.profiling``.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import os
 import numpy as np
 
 from ..utils.profiling import count, span
+from . import native_loader
 
 
 def read_obj(path: str):
@@ -65,6 +73,8 @@ def _write_obj(path, verts, normals, faces, colors):
     faces = None if faces is None or len(faces) == 0 else np.asarray(faces)
     count("io.vertices", len(verts))
     count("io.faces", 0 if faces is None else len(faces))
+    if native_loader.write_obj_native(path, verts, normals, faces, colors):
+        return
     with open(path, "w") as f:
         if normals is not None and len(normals) == len(verts):
             normals = np.asarray(normals)
@@ -100,6 +110,7 @@ def write_npts(path: str, points, normals):
     with span("io.write_npts", file=name):
         pts = np.asarray(points, np.float32)
         nrm = np.asarray(normals, np.float32)
-        np.savetxt(path, np.concatenate([pts, nrm], axis=1), fmt="%.8g")
+        if not native_loader.write_npts_native(path, pts, nrm):
+            np.savetxt(path, np.concatenate([pts, nrm], axis=1), fmt="%.8g")
         count("io.points", len(pts))
         count("io.bytes." + name, os.path.getsize(path))

@@ -85,6 +85,11 @@ def test_spans_nest_under_one_job_and_self_time_excludes_children():
 def traced_align(tmp_path_factory):
     """One traced demo job (--trace), recorded; and one without --trace."""
     from multiviewstitch_tpu_torch.cli import main
+    from multiviewstitch_tpu_torch.io import native_loader
+    # the writers' native library is built or loaded once a process, as a
+    # warm-up job does, so the recorded job's spans do not hang on the
+    # order in which tests ran before it
+    assert native_loader.native_available()
     root = tmp_path_factory.mktemp("tracing")
     tdir = root / "trace"
     with recording() as rec:
