@@ -40,7 +40,13 @@ self time is the glue between stages), ``stage.<name>`` for each stage
 ``manifest.hash_inputs`` and ``manifest.mark_done``,
 ``trim.largest_component``, ``io.write_srt``, ``io.write_npts``,
 ``io.write_obj``, ``poisson.field`` / ``dilate`` / ``extract`` / ``slab``
-/ ``weld``, ``kernels.build`` and ``io.native_build``.
+/ ``weld``, ``kernels.build`` and ``io.native_build``; with ``--refine
+ba`` ``ba.build`` / ``solve`` / ``refit``; with the TSDF ``tsdf.fuse`` /
+``extract``; in ``deform`` ``deform.normals``, ``deform.remove_ground``,
+``deform.init_alignment``, ``deform.part_recog``,
+``deform.local_alignment``, ``deform.setup``, ``deform.correspondences``
+and ``deform.arap``; in ``render`` ``render.raster`` and
+``render.write``, one a sequence.
 """
 
 from __future__ import annotations
@@ -359,7 +365,7 @@ def cmd_deform(args, stage=_call) -> int:
     """Template fitting (the reference's Deform, Processor.cpp:1108-1138);
     ``stage`` as in ``run_deform``."""
     from .interop import mesh_from_numpy
-    from .io.meshio import read_obj
+    from .io.native_loader import parse_obj
     from .models.template_body import make_template
 
     device = _device(args)
@@ -373,7 +379,7 @@ def cmd_deform(args, stage=_call) -> int:
         if not os.path.exists(model):
             _log(f"{model} not found — run `align` (or `pipeline`) first")
             return 2
-        scan_v, _, scan_f = read_obj(model)
+        scan_v, _, scan_f = parse_obj(model)
     res = run_deform(mesh_from_numpy(tv, tf, tl, device=device),
                      mesh_from_numpy(scan_v, scan_f, device=device),
                      os.path.join(result_dir, "deform.obj"), args.passes,
@@ -388,7 +394,7 @@ def cmd_render(args, stage=_call) -> int:
     Model2Depth, Processor.cpp:1140-1191); ``stage`` as in
     ``run_render``."""
     from .core.transforms import Similarity
-    from .io.meshio import read_obj
+    from .io.native_loader import parse_obj
     from .io.srt import load_srt
 
     device = _device(args)
@@ -398,7 +404,7 @@ def cmd_render(args, stage=_call) -> int:
         _log(f"{deform_path} not found — run `deform` (or `pipeline`) "
              "first")
         return 2
-    verts, _, faces = read_obj(deform_path)
+    verts, _, faces = parse_obj(deform_path)
     srt_path = os.path.join(result_dir, "SRT.txt")
     transforms = (load_srt(srt_path) if os.path.exists(srt_path)
                   else [Similarity.identity(device="cpu")])

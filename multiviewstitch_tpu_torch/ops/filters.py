@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import count
 
 def dedup_matches(uv1, uv2, mask):
     """Mark duplicate (uv1, uv2) integer pixel pairs invalid, keeping one
@@ -70,7 +71,7 @@ def gap_filter(uv1, uv2, mask, *, min_gap_sq: float):
     candidate conflicts with it, and DROPPED once an earlier kept one does.
     Each round settles at least the earliest undecided candidate, so the
     loop ends after at most M rounds (a handful on real match sets); one
-    host sync per round."""
+    host sync per round (counter ``sweep.gap_rounds``)."""
     f1 = uv1.to(torch.float32)
     f2 = uv2.to(torch.float32)
     d1 = ((f1[..., :, None, :] - f1[..., None, :, :]) ** 2).sum(-1)
@@ -81,13 +82,16 @@ def gap_filter(uv1, uv2, mask, *, min_gap_sq: float):
     confl = ((d1 <= min_gap_sq) | (d2 <= min_gap_sq)) & earlier
     kept = torch.zeros_like(mask)
     undecided = mask.clone()
+    rounds = 0
     while bool(undecided.any()):
+        rounds += 1
         blocked = (confl & kept[..., None, :]).any(-1)
         undecided = undecided & ~blocked
         waiting = (confl & undecided[..., None, :]).any(-1)
         newly = undecided & ~waiting
         kept = kept | newly
         undecided = undecided & ~newly
+    count("sweep.gap_rounds", rounds)
     return kept
 
 

@@ -19,6 +19,7 @@ import torch
 
 from ..core.cameras import CameraBatch, project, unproject_depth_map
 from ..core.transforms import apply_points
+from ..utils.profiling import count, span
 
 
 class TSDF(NamedTuple):
@@ -190,7 +191,23 @@ def fuse_multi_sequence(seq_disparities, seq_cams, transforms, *,
     frame; the grid spans the points plus a 5 % margin, truncation 3
     voxels) and extract the whole surface (no vertex or face cap, unlike
     the JAX package's 65,536 / 131,072). Returns (vertices, faces, tsdf) with
-    numpy vertices/faces."""
+    numpy vertices/faces. Spans ``tsdf.fuse`` (the bounds and the fusion)
+    and ``tsdf.extract``; counters ``tsdf.frames`` and ``tsdf.vertices``."""
+    with span("tsdf.fuse"):
+        tsdf = _fuse_sequences(seq_disparities, seq_cams, transforms, grid,
+                               min_dsp, max_dsp)
+    count("tsdf.frames", sum(d.shape[0] for d in seq_disparities))
+    with span("tsdf.extract"):
+        mesh = surface_nets(tsdf, max_vertices=None, max_faces=None)
+        verts = mesh.vertices.cpu().numpy()
+        faces = mesh.faces.cpu().numpy().astype(np.int32)
+    count("tsdf.vertices", len(verts))
+    return verts, faces, tsdf
+
+
+def _fuse_sequences(seq_disparities, seq_cams, transforms, grid: int,
+                    min_dsp: float, max_dsp: float) -> TSDF:
+    """``fuse_multi_sequence``'s TSDF."""
     margin = 0.05
     dev = seq_disparities[0].device
     mins = np.full(3, np.inf)
@@ -231,7 +248,4 @@ def fuse_multi_sequence(seq_disparities, seq_cams, transforms, *,
         wsum += t_local.weights
     vals = torch.where(wsum > 0, acc / wsum.clamp_min(1.0),
                        torch.ones_like(acc))
-    tsdf = TSDF(vals, wsum, origin, spacing)
-    mesh = surface_nets(tsdf, max_vertices=None, max_faces=None)
-    return (mesh.vertices.cpu().numpy(),
-            mesh.faces.cpu().numpy().astype(np.int32), tsdf)
+    return TSDF(vals, wsum, origin, spacing)

@@ -153,7 +153,7 @@ def solve_ba_sharded(prob: BAPointBlocks, st: BAState, mesh: Mesh, *,
     count must divide by the mesh size (pad with all-false masks). Returns
     (whole state on every rank, RMSE in pixels)."""
     blk = shard_problem(prob, mesh)
-    stl, best = lm_solve(*_lm_hooks(blk, mesh), shard_state(st, mesh),
-                         iters=iters, lam0=lam0)
+    stl, best, _ = lm_solve(*_lm_hooks(blk, mesh), shard_state(st, mesh),
+                            iters=iters, lam0=lam0)
     return (stl._replace(points=gather_along(mesh, stl.points)),
             float(best))

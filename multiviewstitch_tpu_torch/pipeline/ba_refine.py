@@ -21,6 +21,13 @@ reference never refines: every pose is one RANSAC solve
     into the reference frame.
   - gauge: the cameras of the reference sequence (identity chain
     transform) stay fixed.
+  - before the LM solve, the observations that the chain's cameras
+    reproject far from their pixel are left out (``drop_outliers``): a
+    wrong match that RANSAC kept, or two tracks that one wrong match
+    merged, sits tens to hundreds of pixels off, and left in the least
+    squares it stalls the LM (every step rejected until the damping caps)
+    or pulls the cameras away from the chain. The JAX package solves on
+    every observation.
   - after the LM solve each sequence's similarity is re-fit from its
     refined cameras: R_T = nearest rotation of mean_f R'_f^T R_f, and
     (s, t_T) from the stacked linear system s t_f - R'_f t_T = t'_f. A
@@ -39,9 +46,19 @@ import numpy as np
 import torch
 
 from ..core.transforms import Similarity
-from ..solvers.ba import (BAState, make_problem, reprojection_rmse,
-                          rodrigues, solve_ba)
+from ..solvers.ba import (BAState, apply_mask, make_problem,
+                          reprojection_rmse, residuals, rodrigues, solve_ba)
 from ..solvers.unionfind import UnionFind
+from ..utils.profiling import count, span
+
+
+# an observation the start state reprojects further than OUTLIER_MEDIANS
+# times the median residual from its pixel, and further than
+# OUTLIER_FLOOR_PX, is an outlier: on the body rings the chain's median
+# residual is 1.5-4 px and the wrong matches' tens to hundreds; the floor
+# keeps every observation of a sub-pixel chain within a few pixels
+OUTLIER_MEDIANS = 3.0
+OUTLIER_FLOOR_PX = 4.0
 
 
 def _rotmat_to_rvec(R: np.ndarray) -> np.ndarray:
@@ -192,6 +209,9 @@ def build_ba_problem(seqs, pairs, transforms, *, min_obs: int = 2):
     if not fixed.any():                      # the gauge must be pinned
         fixed[0] = True
 
+    count("ba.cameras", n_cams)
+    count("ba.points", n_points)
+    count("ba.observations", len(pt_idx))
     dev = seqs[0].cams.K.device
     prob = make_problem(K0, cam_idx, pt_idx, uv, n_points,
                         fixed_cams=np.flatnonzero(fixed), n_cams=n_cams,
@@ -213,6 +233,18 @@ def _reference_sequence(transforms) -> int:
         if err < berr:
             best, berr = q, err
     return best
+
+
+def drop_outliers(prob, st: BAState):
+    """``prob`` without the observations ``st`` reprojects further than
+    max(OUTLIER_MEDIANS x the median residual, OUTLIER_FLOOR_PX) pixels
+    from their pixel (``solvers/ba.apply_mask``), with no host read.
+    Returns (problem, [O] bool mask of the observations left out)."""
+    r = torch.linalg.norm(residuals(prob, st), dim=-1)
+    med = torch.where(prob.mask, r, torch.full_like(r, float("nan")))
+    limit = (OUTLIER_MEDIANS * med.nanmedian()).clamp_min(OUTLIER_FLOOR_PX)
+    out = prob.mask & (r > limit)
+    return apply_mask(prob, ~out), out
 
 
 def refit_similarities(seqs, transforms, st: BAState, cam_map
@@ -288,21 +320,32 @@ def _solve_sharded(prob, st0: BAState, mesh, iters: int):
 def refine_with_ba(seqs, pairs, transforms, *, iters: int = 30,
                    mesh=None, verbose: bool = False
                    ) -> Tuple[List[Similarity], Dict[str, float]]:
-    """Bundle adjustment of the chain on its surviving matches, then the
-    per-sequence similarity re-fit. Returns (new transforms, metrics:
-    ba_rmse_init_px, ba_rmse_px, ba_cams, ba_tracks, ba_obs); with no
-    usable tracks, the input chain and {"ba_skipped": 1.0}. With ``mesh``
-    the LM solve shards point blocks over its ranks."""
-    built = build_ba_problem(seqs, pairs, transforms)
+    """Bundle adjustment of the chain on its surviving matches, less the
+    outliers (``drop_outliers``), then the per-sequence similarity re-fit.
+    Returns (new transforms, metrics: ba_rmse_init_px, ba_rmse_px, ba_cams,
+    ba_tracks, ba_obs, the RMSEs and the count over the observations
+    kept); with no usable tracks, the input chain and {"ba_skipped": 1.0}.
+    With ``mesh`` the LM solve shards point blocks over its ranks. Spans
+    ``ba.build``, ``ba.solve`` and ``ba.refit``; the build counts
+    ``ba.cameras``, ``ba.points`` and ``ba.observations``, the solve
+    ``ba.outliers`` and, on one device, ``ba.lm_iterations`` and
+    ``ba.lm_accepted``."""
+    with span("ba.build"):
+        built = build_ba_problem(seqs, pairs, transforms)
     if built is None:
         return list(transforms), {"ba_skipped": 1.0}
     prob, st0, cam_map = built
-    rmse0 = float(reprojection_rmse(prob, st0))
-    if mesh is None:
-        st, rmse = solve_ba(prob, st0, iters=iters, verbose=verbose)
-    else:
-        st, rmse = _solve_sharded(prob, st0, mesh, iters)
-    refined = refit_similarities(seqs, transforms, st, cam_map)
+    with span("ba.solve"):
+        prob, out = drop_outliers(prob, st0)
+        rmse0, n_out = torch.stack([reprojection_rmse(prob, st0),
+                                    out.sum().to(torch.float32)]).tolist()
+        count("ba.outliers", int(n_out))
+        if mesh is None:
+            st, rmse = solve_ba(prob, st0, iters=iters, verbose=verbose)
+        else:
+            st, rmse = _solve_sharded(prob, st0, mesh, iters)
+    with span("ba.refit"):
+        refined = refit_similarities(seqs, transforms, st, cam_map)
     metrics = {"ba_rmse_init_px": rmse0, "ba_rmse_px": rmse,
                "ba_cams": float(st.rvec.shape[0]),
                "ba_tracks": float(st.points.shape[0]),

@@ -27,11 +27,12 @@ import torch
 from ..core.cameras import CameraBatch, _rot3
 from ..core.transforms import Similarity, inverse
 from ..io.meshio import write_obj
-from ..io.rawdepth import depth_to_image, save_depth_raw
+from ..io.rawdepth import save_depth_raw
 from ..ops.depth_refine import refine_depth
 from ..ops.rasterizer import render_sequence
 from ..solvers.alignment import align as rigid_align
 from ..solvers.deformation import Deformer, fit_normals
+from ..utils.profiling import count, span
 
 
 class Mesh(NamedTuple):
@@ -68,12 +69,19 @@ def deform_stage(template: Mesh, scan: Mesh, view_ray: np.ndarray,
     control set and limb anchors are discrete choices), so those choices
     order near-ties by index (solvers/deformation.stable_knn) and the
     device sums run in float64: the card and the CPU pick the same
-    controls."""
+    controls.
+
+    Spans: ``deform.normals`` (each fit_normals), the rigid alignment's
+    (``solvers/alignment.align``) and the Deformer's; counters
+    ``deform.scan_vertices``, ``deform.controls``,
+    ``deform.arap_iterations`` and ``deform.cg_iterations``."""
     dev = template.vertices.device
+    count("deform.scan_vertices", scan.vertices.shape[0])
 
     def rigid():
-        scan_n = fit_normals(scan.vertices, scan.faces)
-        tmpl_n = fit_normals(template.vertices, template.faces)
+        with span("deform.normals"):
+            scan_n = fit_normals(scan.vertices, scan.faces)
+            tmpl_n = fit_normals(template.vertices, template.faces)
         return rigid_align(
             template.vertices.cpu().numpy(), tmpl_n.cpu().numpy(),
             template.labels.cpu().numpy(), scan.vertices.cpu().numpy(),
@@ -82,13 +90,14 @@ def deform_stage(template: Mesh, scan: Mesh, view_ray: np.ndarray,
     res = stage("deform_align_s", rigid)
 
     tgt = torch.as_tensor(res.tgt.astype(np.float32), device=dev)
-    if len(res.t_faces):
-        tgt_n = fit_normals(tgt, torch.as_tensor(res.t_faces,
-                                                 dtype=torch.int64,
-                                                 device=dev))
-    else:
-        tgt_n = torch.as_tensor(res.t_normals, dtype=torch.float32,
-                                device=dev)
+    with span("deform.normals"):
+        if len(res.t_faces):
+            tgt_n = fit_normals(tgt, torch.as_tensor(res.t_faces,
+                                                     dtype=torch.int64,
+                                                     device=dev))
+        else:
+            tgt_n = torch.as_tensor(res.t_normals, dtype=torch.float32,
+                                    device=dev)
     d = Deformer(torch.as_tensor(res.src.astype(np.float32), device=dev),
                  template.faces,
                  torch.as_tensor(res.s_normals, dtype=torch.float32,
@@ -101,6 +110,49 @@ def deform_stage(template: Mesh, scan: Mesh, view_ray: np.ndarray,
         write_obj(out_obj, out.cpu().numpy(), d.normals.cpu().numpy(),
                   template.faces.cpu().numpy())
     return DeformStageResult(out, template.faces, d.normals)
+
+
+# threads that write one sequence's rasters (numpy's file write and PIL's
+# JPEG encoder leave the GIL)
+RASTER_WRITERS = 8
+
+
+def depth_images(disparity: torch.Tensor) -> torch.Tensor:
+    """``io.rawdepth.depth_to_image`` of every frame of ``disparity``
+    [N,H,W] at once on its device: [N,H,W] uint8, each frame's valid
+    (non-zero) disparities min-max normalised to 0..255 in float64, the
+    same numbers as the host function frame by frame."""
+    d = disparity.to(torch.float64)
+    valid = d > 0
+    inf = torch.tensor(float("inf"), dtype=torch.float64, device=d.device)
+    lo = torch.where(valid, d, inf).amin(dim=(1, 2), keepdim=True)
+    hi = torch.where(valid, d, -inf).amax(dim=(1, 2), keepdim=True)
+    scale = torch.where(hi > lo, 255.0 / (hi - lo), 0.0)
+    img = torch.where(valid, (d - lo) * scale, 0.0)
+    return img.clamp(0, 255).to(torch.uint8)
+
+
+def _write_rasters(rdir: str, host: np.ndarray, images: np.ndarray):
+    """_depth<i>.raw of each frame of ``host`` [N,H,W] and _depth<i>.jpg of
+    its ``images`` [N,H,W] uint8 (``depth_images``) under ``rdir``, frames
+    spread over RASTER_WRITERS threads (counter ``io.bytes.render``: the
+    bytes written)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+    os.makedirs(rdir, exist_ok=True)
+
+    def write(i: int) -> int:
+        raw = os.path.join(rdir, f"_depth{i}.raw")
+        jpg = os.path.join(rdir, f"_depth{i}.jpg")
+        save_depth_raw(raw, host[i])
+        Image.fromarray(images[i]).save(jpg)
+        return os.path.getsize(raw) + os.path.getsize(jpg)
+
+    workers = max(1, min(RASTER_WRITERS, host.shape[0]))
+    with ThreadPoolExecutor(max_workers=workers) as pool:
+        n_bytes = sum(pool.map(write, range(host.shape[0])))
+    count("io.bytes.render", n_bytes)
 
 
 def render_stage(model_vertices, model_faces,
@@ -121,38 +173,42 @@ def render_stage(model_vertices, model_faces,
       - render_coverage: fraction of pixels with a rendered surface
       - measured_overlap: fraction of measured-foreground pixels the render
         also covers (with measured_disparity): near zero means the model is
-        not where the cameras look (wrong transform or empty render)."""
+        not where the cameras look (wrong transform or empty render).
+
+    Spans, one a sequence: ``render.raster`` (K3 and the coverage counts,
+    the first reads of its raster) and ``render.write``; counters
+    ``render.frames``, ``render.faces`` (faces handed to K3, summed over
+    the sequences) and ``io.bytes.render``."""
     dev = model_vertices.device
     faces = model_faces.to(device=dev)
     fmask = torch.ones(faces.shape[0], dtype=torch.bool, device=dev)
     outputs = []
     cov_num = cov_den = ovl_num = ovl_den = 0.0
     for k, cams in enumerate(sequences_cams):
-        # the inverse is taken on the host copy, so every device maps the
-        # vertices with the same float32 numbers
-        inv = inverse(transforms[k].to("cpu")).to(dev)
-        pts = _rot3(inv.R, model_vertices) * inv.s + inv.t
-        disp = render_sequence(pts, faces, fmask, cams.to(dev),
-                               height=cams.height, width=cams.width)
-        cov_num += float((disp > 0).sum())
-        cov_den += float(disp.numel())
-        if measured_disparity is not None:
-            meas = torch.as_tensor(measured_disparity[k], device=dev)
-            fg = meas > 0
-            ovl_num += float(((disp > 0) & fg).sum())
-            ovl_den += float(fg.sum())
-        if refine and measured_disparity is not None:
-            disp = refine_depth(meas.to(torch.float32), disp)
+        with span("render.raster", sequence=k):
+            # the inverse is taken on the host copy, so every device maps
+            # the vertices with the same float32 numbers
+            inv = inverse(transforms[k].to("cpu")).to(dev)
+            pts = _rot3(inv.R, model_vertices) * inv.s + inv.t
+            disp = render_sequence(pts, faces, fmask, cams.to(dev),
+                                   height=cams.height, width=cams.width)
+            cov_num += float((disp > 0).sum())
+            cov_den += float(disp.numel())
+            if measured_disparity is not None:
+                meas = torch.as_tensor(measured_disparity[k], device=dev)
+                fg = meas > 0
+                ovl_num += float(((disp > 0) & fg).sum())
+                ovl_den += float(fg.sum())
+            if refine and measured_disparity is not None:
+                disp = refine_depth(meas.to(torch.float32), disp)
+        count("render.frames", disp.shape[0])
+        count("render.faces", faces.shape[0])
 
         if out_dirs is not None:
-            from PIL import Image
-            rdir = os.path.join(out_dirs[k], "DATA", "Render")
-            os.makedirs(rdir, exist_ok=True)
-            host = disp.cpu().numpy()
-            for i in range(host.shape[0]):
-                save_depth_raw(os.path.join(rdir, f"_depth{i}.raw"), host[i])
-                Image.fromarray(depth_to_image(host[i])).save(
-                    os.path.join(rdir, f"_depth{i}.jpg"))
+            with span("render.write", sequence=k):
+                _write_rasters(os.path.join(out_dirs[k], "DATA", "Render"),
+                               disp.cpu().numpy(),
+                               depth_images(disp).cpu().numpy())
         outputs.append(disp)
     if metrics is not None:
         metrics["render_coverage"] = cov_num / max(cov_den, 1.0)

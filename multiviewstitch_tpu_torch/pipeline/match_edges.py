@@ -30,6 +30,7 @@ from ..ops.segmentation import foreground_from_disparity
 from ..ops.view_synth import synthesize_views, view_angles
 from ..solvers.srt import (FINAL_ROUND, RansacStream, estimate_srt_ransac,
                            remove_outliers)
+from ..utils.profiling import count
 
 
 class SequencePrep(NamedTuple):
@@ -124,8 +125,9 @@ def match_edge_block(prep1: SequencePrep, prep2: SequencePrep, key: int,
                      adapt_ratio, iter_num: int, rounds: int):
     """The edges (ei, ej) [B] with stream edge ids ``eid`` [B]: returns
     (uv1, uv2, p1, p2, mask, residual, num_matches), each with leading
-    dim B, as in EdgeBatch."""
+    dim B, as in EdgeBatch (counter ``sweep.edges``)."""
     dev = prep1.gray.device
+    count("sweep.edges", eid.shape[0])
     h, w = prep1.gray.shape[-2:]
     lim = torch.tensor([w - 1, h - 1], device=dev)
 

@@ -25,6 +25,7 @@ import torch
 from ..core.transforms import rotation_between
 from ..models import parts as P
 from ..models.parts import part_recog
+from ..utils.profiling import span
 from .deformation import TIE_REL
 from .pca import extent_along, pivots, plane_fit
 from .unionfind import retain_largest_component
@@ -316,17 +317,23 @@ def align(src: np.ndarray, s_normals: Optional[np.ndarray],
           device) -> AlignOutput:
     """Full rigid template alignment (Align, Alignment.cpp:11-77):
     ground removal -> PCA init -> apply -> part transfer (1-NN) ->
-    neck-barycenter offset -> per-limb local alignment."""
-    g = remove_ground(tgt, t_normals, t_faces, dist_thres, device=device)
+    neck-barycenter offset -> per-limb local alignment. Spans
+    ``deform.remove_ground``, ``deform.init_alignment``,
+    ``deform.part_recog`` and ``deform.local_alignment``."""
+    with span("deform.remove_ground"):
+        g = remove_ground(tgt, t_normals, t_faces, dist_thres,
+                          device=device)
 
-    scale, R, t = init_alignment(src, g.points, g.ground_ray, view_ray,
-                                 device=device)
+    with span("deform.init_alignment"):
+        scale, R, t = init_alignment(src, g.points, g.ground_ray, view_ray,
+                                     device=device)
     src2 = scale * (R @ src.T).T + t
     nrm2 = (R @ s_normals.T).T if s_normals is not None else None
 
-    t_labels = _host(part_recog(
-        _f32(src2, device), torch.as_tensor(s_labels, device=device),
-        _f32(g.points, device)))
+    with span("deform.part_recog"):
+        t_labels = _host(part_recog(
+            _f32(src2, device), torch.as_tensor(s_labels, device=device),
+            _f32(g.points, device)))
 
     # neck barycenter offset (Alignment.cpp:56-64)
     sn = s_labels == P.NECK
@@ -336,7 +343,8 @@ def align(src: np.ndarray, s_normals: Optional[np.ndarray],
         src2 = src2 + offset
         t = t + offset
 
-    src3, nrm3 = local_alignment(src2, nrm2, s_labels, g.points, t_labels,
-                                 device=device)
+    with span("deform.local_alignment"):
+        src3, nrm3 = local_alignment(src2, nrm2, s_labels, g.points,
+                                     t_labels, device=device)
     return AlignOutput(src3, nrm3, s_labels, g.points, g.normals, g.faces,
                        t_labels, scale, R, t)

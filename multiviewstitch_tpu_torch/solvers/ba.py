@@ -38,6 +38,7 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import count
 
 def _skew(v):
     """[...,3] -> [...,3,3] cross-product matrices."""
@@ -365,12 +366,17 @@ def lm_update(step, rmse, st: BAState, best, lam):
 
 def lm_solve(step, rmse, st: BAState, *, iters: int, lam0: float):
     """``iters`` ``lm_update`` iterations from damping ``lam0``, with no
-    host read. Returns (state, RMSE as a 0-dim tensor)."""
+    host read. Returns (state, RMSE as a 0-dim tensor, the number of
+    accepted iterations as a 0-dim int32 tensor: the RMSE falls only when
+    a step is accepted)."""
     best = rmse(st)
     lam = torch.full((), lam0, dtype=torch.float32, device=best.device)
+    accepted = torch.zeros((), dtype=torch.int32, device=best.device)
     for _ in range(iters):
+        prev = best
         st, best, lam = lm_update(step, rmse, st, best, lam)
-    return st, best
+        accepted = accepted + (best < prev).to(torch.int32)
+    return st, best, accepted
 
 
 def _lm_hooks(prob: BAProblem):
@@ -389,10 +395,14 @@ def solve_ba(prob: BAProblem, st: BAState, *, iters: int = 20,
              lam0: float = 1e-3, verbose: bool = False
              ) -> Tuple[BAState, float]:
     """LM solve: ``iters`` ``lm_step`` iterations from damping ``lam0``;
-    the single host read is the final RMSE. Returns (state, RMSE in
-    pixels)."""
-    st, best = lm_solve(*_lm_hooks(prob), st, iters=iters, lam0=lam0)
-    rmse = float(best)
+    the single host read is the final RMSE, with the count of accepted
+    iterations beside it (counters ``ba.lm_iterations``,
+    ``ba.lm_accepted``). Returns (state, RMSE in pixels)."""
+    st, best, accepted = lm_solve(*_lm_hooks(prob), st, iters=iters,
+                                  lam0=lam0)
+    rmse, n_acc = torch.stack([best, accepted.to(best.dtype)]).tolist()
+    count("ba.lm_iterations", iters)
+    count("ba.lm_accepted", int(n_acc))
     if verbose:
         print(f"  BA: rmse {rmse:.4f} after <= {iters} LM iters")
     return st, rmse

@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.profiling import count, span
 
 # ---------------------------------------------------------------------------
 # control sampling + knn weights (host-side graph construction)
@@ -405,10 +406,12 @@ def arap_solve(prob: ARAPProblem, *, outer_iters: int = 5,
         def global_solve(b, p):
             x0 = torch.where(free[:, None], p, torch.zeros_like(p))
             x = _cg(mv, b, x0, cg_iters, tol, lambda r: dinv[:, None] * r)
+            count("deform.cg_iterations", cg_iters)
             return torch.where(free[:, None], x, p)
 
     p = torch.where(prob.constrained[:, None], prob.targets, rest)
     gd = rest[i] - rest[j]
+    count("deform.arap_iterations", outer_iters)
     for _ in range(outer_iters):
         R = _fit_rotations(rest, p, i, j, w)
         # rhs_i = sum_j w/2 (R_i + R_j)(g_i - g_j)
@@ -451,13 +454,21 @@ class Deformer:
     deform(scan_points, scan_normals, ...) repeatedly; the deformed geometry
     becomes the new rest state (overwrite_initial_geometry,
     Deformation.cpp:399). Controls, edges and cotangent weights come from
-    the initial geometry, on the host."""
+    the initial geometry, on the host (span ``deform.setup``; counter
+    ``deform.controls``). A pass runs in the spans
+    ``deform.correspondences`` (the control graph, the target search and
+    the smoothing), ``deform.arap`` and ``deform.normals``."""
     vertices: torch.Tensor
     faces: torch.Tensor
     normals: Optional[torch.Tensor] = None
     sample_idx: Optional[np.ndarray] = None
 
     def __post_init__(self):
+        with span("deform.setup"):
+            self._setup()
+        count("deform.controls", len(self.sample_idx))
+
+    def _setup(self):
         if self.normals is None:
             self.normals = fit_normals(self.vertices, self.faces)
         v = self.vertices.cpu().numpy()
@@ -478,21 +489,24 @@ class Deformer:
                proj_dist_err: float = 100.0, outer_iters: int = 5):
         """One full Deform() pass (Deformation.cpp:232-401) toward scan
         points / normals [T,3]. Returns and stores the deformed vertices."""
-        controls = self.vertices[self._sidx]
-        nbr_idx, nbr_w = knn_graph(controls.cpu().numpy(), 8)
-        corr = find_correspondences(
-            controls, self.normals[self._sidx], tpts, tnormals,
-            proj_len_err=proj_len_err, proj_dist_err=proj_dist_err)
-        dev = controls.device
-        smoothed = smooth_displacements(
-            corr.targets, controls, torch.as_tensor(nbr_idx, device=dev),
-            torch.as_tensor(nbr_w, device=dev))
-        targets = self.vertices.clone()
-        targets[self._sidx] = smoothed
-        prob = ARAPProblem(self.vertices, self._edges, self._weights,
-                           self._constrained, targets)
-        self.vertices = arap_solve(prob, outer_iters=outer_iters)
+        with span("deform.correspondences"):
+            controls = self.vertices[self._sidx]
+            nbr_idx, nbr_w = knn_graph(controls.cpu().numpy(), 8)
+            corr = find_correspondences(
+                controls, self.normals[self._sidx], tpts, tnormals,
+                proj_len_err=proj_len_err, proj_dist_err=proj_dist_err)
+            dev = controls.device
+            smoothed = smooth_displacements(
+                corr.targets, controls, torch.as_tensor(nbr_idx, device=dev),
+                torch.as_tensor(nbr_w, device=dev))
+            targets = self.vertices.clone()
+            targets[self._sidx] = smoothed
+        with span("deform.arap"):
+            prob = ARAPProblem(self.vertices, self._edges, self._weights,
+                               self._constrained, targets)
+            self.vertices = arap_solve(prob, outer_iters=outer_iters)
         # recompute normals for the next pass (exportOBJ also recomputes,
         # Deformation.h:174-221)
-        self.normals = fit_normals(self.vertices, self.faces)
+        with span("deform.normals"):
+            self.normals = fit_normals(self.vertices, self.faces)
         return self.vertices

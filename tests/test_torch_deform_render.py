@@ -44,8 +44,9 @@ from multiviewstitch_tpu_torch.interop import (cameras_from_numpy,
                                                mesh_from_numpy,
                                                similarity_from_numpy)
 from multiviewstitch_tpu_torch.io.meshio import read_obj, write_obj
-from multiviewstitch_tpu_torch.io.rawdepth import load_depth_raw
-from multiviewstitch_tpu_torch.pipeline.deform_render import (deform_stage,
+from multiviewstitch_tpu_torch.io.rawdepth import depth_to_image, load_depth_raw
+from multiviewstitch_tpu_torch.pipeline.deform_render import (depth_images,
+                                                              deform_stage,
                                                               render_stage)
 from multiviewstitch_tpu_torch.solvers import alignment as TA
 from multiviewstitch_tpu_torch.solvers import deformation as TD
@@ -250,6 +251,46 @@ def test_render_stage_matches_jax(tmp_path):
         raw = load_depth_raw(str(rdir / f"_depth{i}.raw"), 160, 120)
         assert np.array_equal(raw, got[i])
         assert (rdir / f"_depth{i}.jpg").stat().st_size > 0
+
+
+def test_depth_images_are_depth_to_image_frame_by_frame():
+    rng = np.random.default_rng(3)
+    d = np.where(rng.random((5, 12, 10)) < 0.4,
+                 rng.random((5, 12, 10)) * 3, 0).astype(np.float32)
+    d[1] = 0.0                               # no valid pixel
+    d[2] = np.where(d[2] > 0, 0.7, 0.0)      # one value: hi == lo
+    d[3] = 0.0
+    d[3, 4, 5] = 1.5                         # a single valid pixel
+    d[4, 0, 0] = -2.0                        # negative: not valid
+    got = depth_images(torch.as_tensor(d))
+    assert got.dtype == torch.uint8 and got.shape == d.shape
+    for i in range(d.shape[0]):
+        np.testing.assert_array_equal(got[i].numpy(), depth_to_image(d[i]))
+
+
+def test_render_stage_writes_the_frame_by_frame_files(tmp_path):
+    """The threaded writer leaves each _depth<i>.raw / .jpg as writing
+    the frames one by one through ``depth_to_image`` and PIL does."""
+    import io
+
+    from PIL import Image
+    tv, tf, jcams, (s, R, t) = _render_case()
+    tcams = cameras_from_numpy(np.asarray(jcams.K), np.asarray(jcams.R),
+                               np.asarray(jcams.t), jcams.width,
+                               jcams.height, "cpu")
+    got = render_stage(
+        torch.as_tensor(tv), torch.as_tensor(tf, dtype=torch.int64),
+        [similarity_from_numpy(s, R, t, "cpu")], [tcams],
+        out_dirs=[str(tmp_path)])[0].numpy()
+    rdir = tmp_path / "DATA" / "Render"
+    assert sorted(os.listdir(rdir)) == sorted(
+        f"_depth{i}.{e}" for i in range(4) for e in ("raw", "jpg"))
+    for i in range(4):
+        assert (rdir / f"_depth{i}.raw").read_bytes() == \
+            got[i].astype(np.float32).tobytes()
+        buf = io.BytesIO()
+        Image.fromarray(depth_to_image(got[i])).save(buf, format="JPEG")
+        assert (rdir / f"_depth{i}.jpg").read_bytes() == buf.getvalue()
 
 
 @pytest.fixture(scope="module")
