@@ -25,7 +25,12 @@ Phases, in order (any failure raises and the exit code is non-zero):
      case's largest clipped bbox and (face, tile) pair count (the kernel's
      own total). Each case logs kernel and plain ms (median of 20 timed
      runs, CUDA events), device us per CUDA kernel (torch.profiler) and
-     the least time the card could take (bound) with its share
+     the least time the card could take (bound) with its share. Then K4
+     (the Poisson field's stencils) at the scan's 1024^3: one Jacobi
+     sweep, one box-blur pass along each axis and one V-cycle from x = 0,
+     each bit-identical to the plain code of ops/poisson on the card and
+     timed the same way (the V-cycle's bound: every launch's inputs read
+     once and outputs written once)
   4. the align slice at config-2 (2 sequences x 5 frames at 640x480,
      max_keypoints 512, TSDF grid 256) through ``cli.run_align``: render,
      prep, edge sweep + solve, fuse, TSDF, trim + write; checks the
@@ -56,7 +61,8 @@ Phases, in order (any failure raises and the exit code is non-zero):
      "--set", "max_keypoints=512", "--device", "cuda", "--force"])`` at
      the default PsnDptMax 10 (Poisson at 1024^3); checks SRT.txt against
      the ground truth, PSR.npts, Model.obj's vertex RMSE to the true
-     surface, the ten per-frame meshes and that K1 and K2 launched; logs
+     surface, the ten per-frame meshes, that K1 and K2 launched and that
+     K4 launched SCAN_STENCIL_LAUNCHES (468) times; logs
      per-stage synced wall times, the Poisson stage's peak device memory,
      the grid and the mesh sizes; the ingest must read the raw depth
      through the native library; the depth-10 run's Poisson stage runs
@@ -162,7 +168,15 @@ SOURCES = {
                         "multiviewstitch_tpu/ops/pallas_gather.py:111"),
     "raster": ("multiviewstitch_tpu_torch/csrc/raster.cu",
                "multiviewstitch_tpu/ops/pallas_raster.py:302"),
+    "stencil": ("multiviewstitch_tpu_torch/csrc/stencil.cu", None),
 }
+# the kernels of the TSDF slices and config-5 (K4 serves Poisson only)
+SLICE_KERNELS = ("consistency", "oriented_points", "raster")
+# K4 launches of one Poisson field at depth 10: 12 V-cycles x (levels
+# 1024..32: 2 sweeps, the restricted residual, the prolongation, 2 sweeps;
+# 16^3: one launch), and the box blur's 6 axis passes on 4 grids
+SCAN_STENCIL_LAUNCHES = 12 * (6 * 6 + 1) + 4 * 6
+STENCIL_SIDE = 1024
 # the H100 SXM's published peaks (at its full 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -499,7 +513,97 @@ def phase_kernels(dev):
                 + inv.t, tf, bcams, BODY_H, BODY_W)
     raster_case("config-3 ring", *config3_scene(dev), H, W)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rec["stencil"] = stencil_case(dev)
+    torch.cuda.empty_cache()
     return rec
+
+
+@contextlib.contextmanager
+def k4_off():
+    """ops.poisson's plain code on CUDA tensors: K4's plain version."""
+    from multiviewstitch_tpu_torch.ops import poisson as P
+    on = P._on_k4
+    P._on_k4 = lambda t: False
+    try:
+        yield
+    finally:
+        P._on_k4 = on
+
+
+def plain_poisson(fn):
+    def run():
+        with k4_off():
+            return fn()
+    return run
+
+
+def stencil_case(dev):
+    """K4 at the scan's 1024^3 against the plain code of ops/poisson, bit
+    for bit: one Jacobi sweep, one V-cycle from x = 0 (levels 1024..32 and
+    the 16^3 solve) and one box-blur pass along each axis. Returns the
+    sweep's JSON record with the V-cycle's times beside it."""
+    from multiviewstitch_tpu_torch.ops import poisson as P
+    g, screen = STENCIL_SIDE, 1e-3
+    cells = g ** 3
+    gen = torch.Generator(device=dev).manual_seed(0)
+    b = P._box_blur_(torch.randn((g,) * 3, generator=gen, device=dev))
+    x = torch.randn((g,) * 3, generator=gen, device=dev)
+    out = kernels.stencil_jacobi(x, b, torch.empty_like(x), screen=screen,
+                                 omega=0.8)
+    with k4_off():
+        want = P._smooth_jacobi(x.clone(), b, screen, 1)
+    assert torch.equal(out, want), "K4 sweep differs from the plain code"
+    del want
+    xp = x.clone()
+    sweep = timed_record(
+        f"K4 Jacobi sweep {g}^3",
+        lambda: kernels.stencil_jacobi(x, b, out, screen=screen, omega=0.8),
+        plain_poisson(lambda: P._smooth_jacobi(xp, b, screen, 1)),
+        *bound(12 * cells, 13 * cells))
+    for ax in range(3):
+        got = kernels.stencil_box_blur(x, out, axis=ax)
+        with k4_off():
+            want = x.clone()
+            P._acc_roll(want, x, 1, ax)
+            P._acc_roll(want, x, -1, ax)
+            want.div_(3.0)
+        assert torch.equal(got, want), f"K4 blur along axis {ax} differs"
+        del want
+
+        def blur_plain(ax=ax):
+            xp.copy_(x)
+            P._acc_roll(xp, x, 1, ax)
+            P._acc_roll(xp, x, -1, ax)
+            xp.div_(3.0)
+        timed_record(f"K4 box blur {g}^3 axis {ax}",
+                     lambda ax=ax: kernels.stencil_box_blur(x, out, axis=ax),
+                     blur_plain, *bound(8 * cells, 3 * cells))
+    del x, xp, out
+    torch.cuda.empty_cache()
+    xk = P._vcycle(torch.zeros_like(b), b, screen)
+    with k4_off():
+        xq = P._vcycle(torch.zeros_like(b), b, screen)
+    assert torch.equal(xk, xq), "K4 V-cycle differs from the plain code"
+    del xq
+    torch.cuda.empty_cache()
+    # each launch reads its inputs once and writes its outputs once: per
+    # level 4 sweeps (12 B a cell), the restricted residual (8.5 B) and
+    # the prolongation (8.5 B); the 16^3 solve is 32 KB
+    vbytes = sum(65 * (g >> lv) ** 3 for lv in range(6))
+    before = kernels.launch_counts()["stencil"]
+    P._vcycle(xk, b, screen)
+    torch.cuda.synchronize()
+    n = kernels.launch_counts()["stencil"] - before
+    assert n == 6 * 6 + 1, f"a 1024^3 V-cycle launched K4 {n} times"
+    vc = timed_record(
+        f"K4 V-cycle {g}^3 ({n} launches)",
+        lambda: P._vcycle(xk, b, screen),
+        plain_poisson(lambda: P._vcycle(xk, b, screen)),
+        *bound(vbytes, 20 * cells * 8 / 7))
+    return dict(max_abs_err=0.0, vcycle_ms=vc["ms"],
+                vcycle_plain_ms=vc["plain_ms"],
+                vcycle_bound_ms=vc["bound_ms"], **sweep)
 
 
 def rmse_to(points, verts, dev):
@@ -607,7 +711,7 @@ def phase_slice(dev):
         for name in ("SRT.txt", "PSR.npts", "Model.obj"):
             assert os.path.getsize(os.path.join(wd, name)) > 0, name
     check_slice("config-2", dev, gt, res, pts, nrm, moved, mesh)
-    for name in kernels.KERNELS:
+    for name in SLICE_KERNELS:
         assert launches[name] > 0, f"{name} was not launched by the slice"
     log("slice stage wall times (warm, synced): " + ", ".join(
         f"{k} {v:.4f}" for k, v in t.items()))
@@ -645,7 +749,7 @@ def phase_noise_refine(dev):
                 dev, wd, arc, noise=level, refine=refine, outs=outs)
             torch.cuda.synchronize()
             launches = kernels.launch_counts()
-        for k in kernels.KERNELS:
+        for k in SLICE_KERNELS:
             assert launches[k] > 0, f"{name}: {k} was not launched"
         check_slice(name, dev, gt, res, pts, nrm, moved, mesh,
                     NOISE if level else HARD)
@@ -908,6 +1012,12 @@ def log_poisson_profile(prof, wall, depth):
         ", ".join(f"{k} {steps[k].time_range.elapsed_us() / 1e6:.4f} / "
                   f"{steps[k].device_time_total / 1e6:.4f}"
                   for k in POISSON_STEPS if k in steps))
+    # a range's device time counts the PyTorch ops launched inside it;
+    # K4's ctypes launches link to no op, and run only inside the field
+    k4 = sum(e.time_range.elapsed_us() for e in device_events(prof)
+             if "stencil_" in e.name)
+    log(f"    K4 device s (the field's, besides its PyTorch ops): "
+        f"{k4 / 1e6:.4f}")
     log("    top device events: " + top_device_events(prof))
     assert busy > 0, "the profiler saw no device-side Poisson events"
 
@@ -939,6 +1049,8 @@ def phase_config(dev):
         assert n_v == n_exact, (n_v, n_exact)
         for k in ("consistency", "oriented_points"):
             assert launches[k] > 0, f"{k} was not launched by align --config"
+        assert launches["stencil"] == SCAN_STENCIL_LAUNCHES, \
+            f"K4 launches {launches['stencil']}, not {SCAN_STENCIL_LAUNCHES}"
         log_poisson_profile(prof, t["poisson_s"],
                             CONFIG_DEPTHS[0] or 10)
         depth = CONFIG_DEPTHS[1]
@@ -954,6 +1066,7 @@ def phase_config(dev):
             f"{len(outs['all_seq_proj_s'][0])} -> {len(kv)} verts, "
             f"{len(kf)} faces in {time.perf_counter() - t0:.4f} s (host; "
             f"the rest of trim_write_s is writing)")
+    return launches["stencil"]
 
 # phase 8: bench/body_bench.py's body scan (the reference's second mode)
 BODY_W, BODY_H, BODY_FRAMES, BODY_GRID = 480, 640, 12, 160
@@ -1515,7 +1628,7 @@ def phase_config5(dev, mesh):
         f"{k} {v:.4f}" for k, v in t.items()))
     assert same_result(res, ref), "config-5: sharded != unsharded"
     assert s_err < C5_LIMITS[0] and ang < C5_LIMITS[1], (s_err, ang)
-    for k in kernels.KERNELS:
+    for k in SLICE_KERNELS:
         assert launches[k] > 0, f"config-5: {k} was not launched"
     assert len(pts) > 2000 and np.isfinite(pts).all() and \
         np.isfinite(nrm).all()
@@ -1670,7 +1783,7 @@ def main():
     phase_noise_refine(dev)
     phase_cli()
     phase_profile(dev)
-    phase_config(dev)
+    launches["stencil"] = phase_config(dev)
     arap_prob = phase_body(dev)
     ba_ms = phase_ba(dev)
     phase_parallel(dev, arap_prob, ba_ms)

@@ -7,13 +7,20 @@ counter ``kernels.launch.<kernel>`` (``utils.profiling.count``; once per
 call, however many CUDA kernels the call runs). The plain
 PyTorch version of each kernel lives beside its caller in ``ops/``
 (``check_consistency_reference``, ``sample_oriented_points_reference``,
-``raster_reference``); the public ops take it only for tensors on the CPU.
+``raster_reference``; K4's are the stencil functions of ``ops/poisson``);
+the public ops take it only for tensors on the CPU.
 
 Kernels:
   consistency      K1, csrc/consistency.cu  (ops/consistency.check_consistency)
   oriented_points  K2, csrc/sampling.cu     (ops/point_sampling
                                              .sample_oriented_points)
   raster           K3, csrc/raster.cu       (ops/rasterizer.render_sequence)
+  stencil          K4, csrc/stencil.cu      (ops/poisson: the Jacobi sweeps,
+                                             the restricted residual, the
+                                             prolongation, the coarsest
+                                             solve, the CG matvec and the
+                                             splat's box blur; six wrappers,
+                                             stencil_*, one counter)
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ import torch
 from ..utils.profiling import count, counters, reset_counters
 from . import _build
 
-KERNELS = ("consistency", "oriented_points", "raster")
+KERNELS = ("consistency", "oriented_points", "raster", "stencil")
 LAUNCH = "kernels.launch."       # the launch counters' prefix
 raster_pairs = None   # (face, tile) pairs K3 binned in its last call
 
@@ -228,3 +235,151 @@ def raster(uvz: torch.Tensor, faces: torch.Tensor, face_ok: torch.Tensor,
     raster_pairs = total
     count(LAUNCH + "raster")
     return zbuf
+
+
+# csrc/stencil.cu: the one-block solve holds at most 16^3 cells; launch
+# grids cap a side at 65535
+STENCIL_COARSEST_CELLS = 4096
+_STENCIL_MAX_SIDE = 65535
+_SWEEP_JACOBI, _SWEEP_MATVEC, _SWEEP_RESTRICT = 0, 1, 2
+
+
+def _f32(v: float) -> float:
+    """v rounded to float32 (to nearest), as PyTorch casts a Python scalar
+    for a float32 tensor."""
+    return ctypes.c_float(v).value
+
+
+def _jacobi_coef(screen: float, omega: float):
+    """(-screen, omega, 1 / diag) in float32, as the plain version's ops
+    use them on the card: add_'s alpha and mul_'s factor cast to float,
+    and div_ by the Python scalar -6 - screen run as a product with its
+    float reciprocal (exact after the double quotient: 53 >= 2 * 24 + 2
+    bits)."""
+    return (_f32(-screen), _f32(omega), _f32(1.0 / _f32(-6.0 - screen)))
+
+
+def _cube(t, name: str, side=None) -> int:
+    """Side G of the float32 contiguous cube t [G,G,G] (of side ``side``
+    if given). Needs no card, so it runs before the device check."""
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: dtype {t.dtype}, expected torch.float32")
+    g = t.shape[0] if t.dim() == 3 else 0
+    if (tuple(t.shape) != (g, g, g) or not 1 <= g <= _STENCIL_MAX_SIDE or
+            side is not None and g != side):
+        want = "[G,G,G]" if side is None else f"[{side},{side},{side}]"
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {want}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    return g
+
+
+def _even(g: int, what: str):
+    if g % 2:
+        raise ValueError(f"{what}: side {g} is odd, the 2x2x2 blocks need "
+                         "an even side")
+
+
+def _card(*named):
+    """Raise unless every (name, tensor) lies on one CUDA device and no
+    two share memory (each kernel reads and writes distinct fields)."""
+    dev = named[0][1].device
+    if dev.type != "cuda":
+        raise ValueError("stencil kernel needs CUDA tensors")
+    for name, t in named[1:]:
+        if t.device != dev:
+            raise ValueError(f"{name}: on {t.device}, expected {dev}")
+    ptrs = [t.data_ptr() for _, t in named]
+    if len(set(ptrs)) != len(ptrs):
+        raise ValueError("stencil: the fields must not share memory")
+
+
+def _stencil_launch(fn, *args):
+    lib = _build.load()
+    err = getattr(lib, fn)(*args)
+    _build.check(lib, err, "stencil")
+    count(LAUNCH + "stencil")
+
+
+def stencil_jacobi(x: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *,
+                   screen: float, omega: float) -> torch.Tensor:
+    """K4: one damped-Jacobi sweep of (L - screen) x = b (the unscaled
+    periodic 7-point stencil L, diagonal -6 - screen) from x [G,G,G] into
+    ``out``; returns ``out``."""
+    g = _cube(x, "x")
+    _cube(b, "b", g)
+    _cube(out, "out", g)
+    _card(("x", x), ("b", b), ("out", out))
+    _stencil_launch("mvs_stencil_sweep", x.data_ptr(), b.data_ptr(),
+                    out.data_ptr(), g, _SWEEP_JACOBI,
+                    *_jacobi_coef(screen, omega), _stream(x))
+    return out
+
+
+def stencil_matvec(x: torch.Tensor, *, screen: float) -> torch.Tensor:
+    """K4: (L - screen) x of x [G,G,G], a new field."""
+    g = _cube(x, "x")
+    _card(("x", x))
+    out = torch.empty_like(x)
+    _stencil_launch("mvs_stencil_sweep", x.data_ptr(), None, out.data_ptr(),
+                    g, _SWEEP_MATVEC, *_jacobi_coef(screen, 1.0), _stream(x))
+    return out
+
+
+def stencil_residual_restrict(x: torch.Tensor, b: torch.Tensor, *,
+                              screen: float) -> torch.Tensor:
+    """K4: 4 * restrict2(b - (L - screen) x) of x, b [G,G,G] (G even): the
+    coarse right-hand side [G/2]^3 of a V-cycle, without the fine
+    residual."""
+    g = _cube(x, "x")
+    _cube(b, "b", g)
+    _even(g, "stencil_residual_restrict")
+    _card(("x", x), ("b", b))
+    out = torch.empty((g // 2,) * 3, dtype=x.dtype, device=x.device)
+    _stencil_launch("mvs_stencil_sweep", x.data_ptr(), b.data_ptr(),
+                    out.data_ptr(), g, _SWEEP_RESTRICT,
+                    *_jacobi_coef(screen, 1.0), _stream(x))
+    return out
+
+
+def stencil_prolong_add(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """K4: x [G,G,G] += e [G/2]^3 broadcast over 2x2x2 blocks (G even), in
+    place; returns x."""
+    g = _cube(x, "x")
+    _even(g, "stencil_prolong_add")
+    _cube(e, "e", g // 2)
+    _card(("x", x), ("e", e))
+    _stencil_launch("mvs_stencil_prolong", x.data_ptr(), e.data_ptr(), g,
+                    _stream(x))
+    return x
+
+
+def stencil_coarsest(x: torch.Tensor, b: torch.Tensor, *, screen: float,
+                     omega: float, iters: int) -> torch.Tensor:
+    """K4: ``iters`` damped-Jacobi sweeps of x [G,G,G] in place, in one
+    launch of one block (G^3 <= STENCIL_COARSEST_CELLS); returns x."""
+    g = _cube(x, "x")
+    _cube(b, "b", g)
+    if g ** 3 > STENCIL_COARSEST_CELLS or int(iters) < 0:
+        raise ValueError(f"stencil_coarsest: {g}^3 cells, {iters} sweeps "
+                         f"(at most {STENCIL_COARSEST_CELLS} cells)")
+    _card(("x", x), ("b", b))
+    _stencil_launch("mvs_stencil_coarsest", x.data_ptr(), b.data_ptr(), g,
+                    int(iters), *_jacobi_coef(screen, omega), _stream(x))
+    return x
+
+
+def stencil_box_blur(a: torch.Tensor, out: torch.Tensor, *,
+                     axis: int) -> torch.Tensor:
+    """K4: one periodic 3-tap box pass of a [G,G,G] along ``axis`` (0 z,
+    1 y, 2 x), ((a + a[i-1]) + a[i+1]) / 3, into ``out``; returns out."""
+    g = _cube(a, "a")
+    _cube(out, "out", g)
+    if axis not in (0, 1, 2):
+        raise ValueError(f"stencil_box_blur: axis {axis}, expected 0, 1 or 2")
+    _card(("a", a), ("out", out))
+    _stencil_launch("mvs_stencil_blur", a.data_ptr(), out.data_ptr(), g,
+                    axis, _f32(1.0 / 3.0), _stream(a))
+    return out

@@ -52,6 +52,15 @@ _SIGNATURES = {
     # bins, capacity, zbuf, n_frames, n_verts, n_faces, h, w, stream
     "mvs_raster": (_P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I,
                    _I, _I, _P),
+    # x, b (null for the matvec), out, G, mode, -screen, omega, 1 / diag,
+    # stream
+    "mvs_stencil_sweep": (_P, _P, _P, _I, _I, _F, _F, _F, _P),
+    # x, b, G, iters, -screen, omega, 1 / diag, stream
+    "mvs_stencil_coarsest": (_P, _P, _I, _I, _F, _F, _F, _P),
+    # x, e, G, stream
+    "mvs_stencil_prolong": (_P, _P, _I, _P),
+    # a, out, G, axis, 1 / 3, stream
+    "mvs_stencil_blur": (_P, _P, _I, _I, _F, _P),
 }
 
 _lock = threading.Lock()

@@ -21,8 +21,19 @@ values, at ~2 TFLOP per restriction at 1024^3), prolongation is one
 in-place broadcast add, and every periodic stencil (``roll`` in the JAX
 package) adds shifted slices in place, so no stencil materialises a
 rolled copy. At 1024^3 one field is 4.29 GB; the solve holds three (the
-right-hand side, the solution and one residual) plus the coarse levels.
-Nothing in the solvers reads a value back to the host.
+right-hand side, the solution and one scratch field) plus the coarse
+levels. Nothing in the solvers reads a value back to the host.
+
+On CUDA tensors the stencils run on K4, the hand-written kernels of
+``csrc/stencil.cu`` (``kernels.stencil_*``), bit-identical to the plain
+code here, which serves CPU tensors (``_on_k4``): each Jacobi sweep of
+``_smooth_jacobi`` is one pass (x and b read once, x' written into a
+scratch field, the two swapped), every sweep of a grid of at most 16^3
+cells one launch of one block, ``_vcycle``'s coarse right-hand side
+``_restrict2(_residual(...)) * 4`` one pass that never writes the fine
+residual, ``_prolong_add`` one pass, each axis step of ``_box_blur_`` one
+pass, and ``_matvec`` (``_cg``) one pass. The splat, the divergence, the
+iso gather, the dilation and the extraction stay plain PyTorch.
 
 Above grid 256 the surface is extracted in overlapping Z-slabs (each face
 owned by exactly one slab; duplicated halo vertices are welded on the host
@@ -43,6 +54,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..utils.profiling import count, span
 from .tsdf import TSDF, surface_nets
 
@@ -99,6 +111,12 @@ def _acc_roll(out, x, shift: int, dim: int, alpha: float = 1.0):
     return out
 
 
+def _on_k4(t) -> bool:
+    """Whether the stencils of t run on K4 (``kernels.stencil_*``): CUDA
+    tensors do, CPU tensors take the plain code."""
+    return t.device.type == "cuda"
+
+
 def _box_blur_(x):
     """Two rounds of the per-axis 3-tap periodic box filter (the splat's
     mild B-spline-like smoothing), in place on x with one scratch field:
@@ -106,10 +124,14 @@ def _box_blur_(x):
     a, tmp = x, torch.empty_like(x)
     for _ in range(2):
         for ax in range(3):
-            tmp.copy_(a)
-            _acc_roll(tmp, a, 1, ax)
-            _acc_roll(tmp, a, -1, ax)
-            a, tmp = tmp.div_(3.0), a
+            if _on_k4(a):
+                kernels.stencil_box_blur(a, tmp, axis=ax)
+            else:
+                tmp.copy_(a)
+                _acc_roll(tmp, a, 1, ax)
+                _acc_roll(tmp, a, -1, ax)
+                tmp.div_(3.0)
+            a, tmp = tmp, a
     return a
 
 
@@ -124,6 +146,8 @@ def _laplacian(x):
 
 def _matvec(x, screen: float):
     """(L - screen) x."""
+    if _on_k4(x):
+        return kernels.stencil_matvec(x, screen=screen)
     return _laplacian(x).add_(x, alpha=-screen)
 
 
@@ -134,7 +158,18 @@ def _residual(x, b, screen: float):
 
 def _smooth_jacobi(x, b, screen: float, iters: int, omega: float = 0.8):
     """Damped Jacobi relaxation of (L - screen) x = b in place (diagonal
-    -6 - screen)."""
+    -6 - screen). On K4: every sweep of a grid of at most 16^3 cells in
+    one launch, else one launch a sweep into a scratch field, swapped
+    with x (x holds the result at the end)."""
+    if _on_k4(x):
+        if x.numel() <= kernels.STENCIL_COARSEST_CELLS:
+            return kernels.stencil_coarsest(x, b, screen=screen, omega=omega,
+                                            iters=iters)
+        src, dst = x, torch.empty_like(x)
+        for _ in range(iters):
+            src, dst = kernels.stencil_jacobi(src, b, dst, screen=screen,
+                                              omega=omega), src
+        return x if src is x else x.copy_(src)
     for _ in range(iters):
         x.add_(_residual(x, b, screen).mul_(omega).div_(-6.0 - screen))
     return x
@@ -152,6 +187,8 @@ def _restrict2(x):
 def _prolong_add(x, e):
     """x += piecewise-constant prolongation of the coarse field e, in
     place."""
+    if _on_k4(x):
+        return kernels.stencil_prolong_add(x, e)
     g0, g1, g2 = e.shape
     x.view(g0, 2, g1, 2, g2, 2).add_(e[:, None, :, None, :, None])
     return x
@@ -159,19 +196,31 @@ def _prolong_add(x, e):
 
 def _vcycle(x, b, screen: float, *, coarsest: int = 16, nu: int = 2):
     """One multigrid V-cycle on the unscaled screened-Laplacian stencil, in
-    place on x. Residual and screen scale by 4 per level (h^2 of the
-    continuous operator under the unscaled stencil)."""
+    place on x: nu pre-smoothing sweeps, the coarse correction, nu
+    post-smoothing sweeps; nu + 40 sweeps at the coarsest level. Residual
+    and screen scale by 4 per level (h^2 of the continuous operator under
+    the unscaled stencil)."""
+    if x.shape[0] <= coarsest:
+        return _smooth_jacobi(x, b, screen, nu + 40)
     _smooth_jacobi(x, b, screen, nu)
-    if x.shape[0] > coarsest:
-        bc = _restrict2(_residual(x, b, screen)).mul_(4.0)
-        ec = _vcycle(torch.zeros_like(bc), bc, 4.0 * screen,
-                     coarsest=coarsest, nu=nu)
-        del bc
-        _prolong_add(x, ec)
-        del ec
-        _smooth_jacobi(x, b, screen, nu)
+    if _on_k4(x):
+        bc = kernels.stencil_residual_restrict(x, b, screen=screen)
     else:
-        _smooth_jacobi(x, b, screen, 40)
+        bc = _restrict2(_residual(x, b, screen)).mul_(4.0)
+    ec = _vcycle(torch.zeros_like(bc), bc, 4.0 * screen, coarsest=coarsest,
+                 nu=nu)
+    del bc
+    _prolong_add(x, ec)
+    del ec
+    return _smooth_jacobi(x, b, screen, nu)
+
+
+def _multigrid(b, screen: float, vcycles: int):
+    """``vcycles`` V-cycles of (L - screen) x = b from x = 0."""
+    x = torch.zeros_like(b)
+    for _ in range(vcycles):
+        _vcycle(x, b, screen)
+    count("poisson.vcycles", vcycles)
     return x
 
 
@@ -223,10 +272,7 @@ def poisson_field(points, normals, valid, origin, spacing, *,
     if solver == "auto":
         solver = "multigrid" if grid >= 256 else "cg"
     if solver == "multigrid":
-        x = torch.zeros_like(b)
-        for _ in range(vcycles):
-            _vcycle(x, b, screen)
-        count("poisson.vcycles", vcycles)
+        x = _multigrid(b, screen, vcycles)
     else:
         x = _cg(b, screen, cg_iters)
     del b

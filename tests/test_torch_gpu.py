@@ -1,4 +1,4 @@
-"""The hand-written CUDA kernels K1-K3 against their plain PyTorch versions
+"""The hand-written CUDA kernels K1-K4 against their plain PyTorch versions
 on the card (K1 also at other neighbour offsets), the plain-PyTorch
 stages around them (deform, depth refine, bundle adjustment, the pose
 graph, the refined demo align) on the card against the CPU, and the
@@ -13,8 +13,10 @@ versions' operand order, so K1's output and K2's points are bit-identical,
 K2's confidences and keep mask agree on >= 99.99 % of samples and its
 normals lie within 1e-6 on >= 99.99 % of the samples both keep (PyTorch's
 cross, norm and sum kernels may contract or reorder; an edge-on normal may
-flip), and K3's z-buffer is bit-identical (a max is order-free, whatever
-order a tile's bin holds). Every test checks the kernel's launch count."""
+flip), K3's z-buffer is bit-identical (a max is order-free, whatever
+order a tile's bin holds), and so is every K4 output (the Poisson field's
+stencils, in the plain code's operation order). Every test checks the
+kernel's launch count."""
 
 import numpy as np
 import pytest
@@ -37,7 +39,7 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture(scope="module")
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU with nvcc (CUDA kernels K1-K3)")
+        pytest.skip("needs an NVIDIA GPU with nvcc (CUDA kernels K1-K4)")
     from multiviewstitch_tpu_torch.kernels import _build
     _build.load()
     return torch.device("cuda")
@@ -426,8 +428,108 @@ def test_wrappers_check_their_inputs(scene):
                             max_dsp=1.0, reproj_err=4)
 
 
-# --- Poisson and the per-frame meshes: plain PyTorch on the card against
-# the same code on the CPU (no CUDA kernel of their own yet)
+# --- K4 (csrc/stencil.cu): the Poisson field's stencils against the plain
+# code of ops/poisson on the card, bit for bit (the solver has no atomics)
+
+K4_SIDES = [16, 18, 32, 64, 256]      # 18: the one-cell-a-thread kernels
+K4_SCREEN = 1e-3 * 4 ** 3             # the scan's screen three levels down
+
+
+def _plain_poisson(fn, *args, **kw):
+    """fn of ops.poisson with K4 off: its plain code on CUDA tensors."""
+    from multiviewstitch_tpu_torch.ops import poisson as P
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(P, "_on_k4", lambda t: False)
+        return fn(*args, **kw)
+
+
+def _k4_fields(cuda, side, n, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed * 1000 + side)
+    return [torch.randn((side,) * 3, generator=g, device=cuda)
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("side", K4_SIDES)
+def test_k4_sweep_matvec_and_restriction_match_plain(cuda, side):
+    from multiviewstitch_tpu_torch.ops import poisson as P
+    x, b = _k4_fields(cuda, side, 2)
+    got = _counted("stencil", lambda: kernels.stencil_jacobi(
+        x, b, torch.empty_like(x), screen=K4_SCREEN, omega=0.8))
+    want = _plain_poisson(P._smooth_jacobi, x.clone(), b, K4_SCREEN, 1)
+    assert torch.equal(got, want)
+    got = _counted("stencil",
+                   lambda: kernels.stencil_matvec(x, screen=K4_SCREEN))
+    assert torch.equal(got, _plain_poisson(P._matvec, x, K4_SCREEN))
+    got = _counted("stencil", lambda: kernels.stencil_residual_restrict(
+        x, b, screen=K4_SCREEN))
+    want = _plain_poisson(lambda: P._restrict2(
+        P._residual(x, b, K4_SCREEN)).mul_(4.0))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("side", K4_SIDES)
+def test_k4_prolongation_and_blur_match_plain(cuda, side):
+    from multiviewstitch_tpu_torch.ops import poisson as P
+    x, a = _k4_fields(cuda, side, 2, seed=1)
+    e, = _k4_fields(cuda, side // 2, 1, seed=2)
+    got = _counted("stencil",
+                   lambda: kernels.stencil_prolong_add(x.clone(), e))
+    assert torch.equal(got, _plain_poisson(P._prolong_add, x.clone(), e))
+    for ax in range(3):
+        got = _counted("stencil", lambda: kernels.stencil_box_blur(
+            a, torch.empty_like(a), axis=ax))
+        want = a.clone()
+        P._acc_roll(want, a, 1, ax)
+        P._acc_roll(want, a, -1, ax)
+        assert torch.equal(got, want.div_(3.0)), f"axis {ax}"
+    assert torch.equal(P._box_blur_(a.clone()),
+                       _plain_poisson(P._box_blur_, a.clone()))
+
+
+@pytest.mark.parametrize("side", [9, 16])
+def test_k4_coarsest_solve_matches_plain(cuda, side):
+    from multiviewstitch_tpu_torch.ops import poisson as P
+    b, = _k4_fields(cuda, side, 1, seed=3)
+    x = torch.zeros_like(b)
+    got = _counted("stencil", lambda: P._smooth_jacobi(x, b, K4_SCREEN, 42))
+    want = _plain_poisson(P._smooth_jacobi, torch.zeros_like(b), b,
+                          K4_SCREEN, 42)
+    assert got is x and torch.equal(got, want)
+
+
+def test_k4_multigrid_solve_matches_plain(cuda):
+    """12 V-cycles at 256^3 from one right-hand side (the blurred noise of
+    a seed): K4 equals the plain code bit for bit, in 12 x 25 launches
+    (levels 256, 128, 64, 32: two sweeps, the restricted residual, the
+    prolongation, two sweeps; 16^3: one launch)."""
+    from multiviewstitch_tpu_torch.ops import poisson as P
+    noise, = _k4_fields(cuda, 256, 1, seed=4)
+    b = P._box_blur_(noise)
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()["stencil"]
+    got = P._multigrid(b, 1e-3, 12)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["stencil"] - before == 12 * 25
+    want = _plain_poisson(P._multigrid, b, 1e-3, 12)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["stencil"] - before == 12 * 25
+    assert torch.isfinite(got).all() and float(got.abs().max()) > 0
+    assert torch.equal(got, want)
+
+
+def test_k4_refuses_aliased_fields(cuda):
+    x, b = _k4_fields(cuda, 32, 2)
+    with pytest.raises(ValueError, match="share memory"):
+        kernels.stencil_jacobi(x, b, x, screen=1e-3, omega=0.8)
+    with pytest.raises(ValueError, match="share memory"):
+        kernels.stencil_box_blur(x, x, axis=0)
+    with pytest.raises(ValueError):
+        kernels.stencil_jacobi(x, b.cpu(), torch.empty_like(x), screen=1e-3,
+                               omega=0.8)
+
+
+# --- Poisson and the per-frame meshes: the card (K4 and plain PyTorch)
+# against the same code on the CPU
 
 
 def _sphere_cloud(n=3000, seed=0):
@@ -461,26 +563,45 @@ def test_reconstruct_poisson_cuda_matches_cpu(cuda, depth):
     assert abs(r.mean() - 1.0) < 0.01
 
 
-def test_poisson_solvers_make_no_host_sync(cuda):
+def _solvers_without_host_sync(cuda, plain: bool) -> int:
+    """_cg, a V-cycle and the blur under CUDA's sync check (no sync may
+    happen); returns the K4 launches they made."""
     import warnings
     from multiviewstitch_tpu_torch.ops import poisson as P
     g = torch.Generator(device=cuda).manual_seed(0)
     b = torch.randn(64, 64, 64, generator=g, device=cuda)
     x = torch.zeros_like(b)
     P._cg(b[:32, :32, :32].contiguous(), 1e-3, 3)
+    P._box_blur_(b.clone())
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            P._cg(b[:32, :32, :32].contiguous(), 1e-3, 20)
-            P._vcycle(x, b, 1e-3)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
+    before = kernels.launch_counts()["stencil"]
+    with pytest.MonkeyPatch.context() as m:
+        if plain:
+            m.setattr(P, "_on_k4", lambda t: False)
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                P._cg(b[:32, :32, :32].contiguous(), 1e-3, 20)
+                P._vcycle(x, b, 1e-3)
+                P._box_blur_(b.clone())
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
     syncs = [str(c.message) for c in caught
              if "synchroniz" in str(c.message)]
     assert syncs == []
     assert torch.isfinite(x).all()
+    return kernels.launch_counts()["stencil"] - before
+
+
+def test_poisson_solvers_make_no_host_sync(cuda):
+    """On K4: _cg's 21 matvecs, the V-cycle's 13 launches (levels 64 and
+    32, then 16^3) and the blur's 6."""
+    assert _solvers_without_host_sync(cuda, plain=False) == 21 + 13 + 6
+
+
+def test_poisson_plain_solvers_make_no_host_sync(cuda):
+    assert _solvers_without_host_sync(cuda, plain=True) == 0
 
 
 @pytest.mark.parametrize("edge", [0.0, 0.03])

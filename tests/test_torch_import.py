@@ -69,7 +69,12 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         kernels.raster(torch.zeros(1, 3, 3), torch.zeros(1, 3,
                                                          dtype=torch.int32),
                        torch.ones(1, 1, dtype=torch.bool), height=4, width=5)
-    assert kernels.launch_counts() == {k: 0 for k in kernels.KERNELS}
+    f = torch.zeros(4, 4, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.stencil_jacobi(f, f.clone(), f.clone(), screen=1e-3,
+                               omega=0.8)
+    assert kernels.launch_counts() == {
+        "consistency": 0, "oriented_points": 0, "raster": 0, "stencil": 0}
 
 
 def test_kernel_library_is_keyed_on_sources_and_ignored_by_git():
@@ -82,4 +87,5 @@ def test_kernel_library_is_keyed_on_sources_and_ignored_by_git():
     proc = subprocess.run(["git", "check-ignore", "-q", rel], cwd=REPO)
     assert proc.returncode == 0, f"{rel} is not git-ignored"
     srcs = {os.path.basename(s) for s in _build._sources()}
-    assert {"consistency.cu", "sampling.cu", "raster.cu"} <= srcs
+    assert {"consistency.cu", "sampling.cu", "raster.cu",
+            "stencil.cu"} <= srcs
