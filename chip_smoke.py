@@ -239,13 +239,13 @@ def phase_device():
 def phase_build():
     from multiviewstitch_tpu_torch.io import native_loader
     t0 = time.perf_counter()
-    path = _build.build(verbose=True)
+    path = _build.LIB.build(verbose=True)
     _build.load()
     log(f"build: {path} in {time.perf_counter() - t0:.2f} s "
         f"(nvcc {'ran' if profiling.counters('kernels.built') else 'cached'})")
     t0 = time.perf_counter()          # the ingest's reader, built here so
     ok = native_loader.native_available()       # ingest_s is all reading
-    log(f"build: native IO {native_loader.library_path()} in "
+    log(f"build: native IO {native_loader.LIB.path()} in "
         f"{time.perf_counter() - t0:.2f} s")
     assert ok, "the native IO library did not build"
 
@@ -460,8 +460,9 @@ def phase_kernels(dev):
             torch.as_tensor(verts, device=dev),
             torch.as_tensor(faces, device=dev),
             torch.ones(len(faces), dtype=torch.bool, device=dev), rcams)
+        profiling.reset_counters(kernels.PAIRS)
         got = tr.raster(uvz, fi, ok, height=h, width=w)
-        pairs = kernels.raster_pairs
+        pairs = profiling.counters(kernels.PAIRS).get(kernels.PAIRS)
         ref = tr.raster_reference(uvz, fi, ok, height=h, width=w)
         n_diff = int(((got > 0) != (ref > 0)).sum())
         err = (got - ref).abs().max().item()

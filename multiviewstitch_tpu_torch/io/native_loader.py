@@ -7,44 +7,49 @@ and the threaded OBJ / NPTS text writers behind ``io.meshio``
 (``write_obj_native``, ``write_npts_native``: the bytes of meshio's
 Python writers, formatted as ``csrc/mvs_io.cpp``'s header says).
 At first use g++ builds the port's own copy of the source into the
-git-ignored ``_build/`` directory beside the package (keyed on the
-source, the flags and the host CPU's features). Where it cannot be built
-or loaded, every function takes its numpy counterpart, as the JAX
-package's do; ``native_available()`` says which, and ``read_counts()``
-(a view of the counters ``io.native_reads.<reader>``) counts the raw
-batches each reader served, so a run can show which one ran. The writers
-return False where the library or its writers (``mvs_writers_available``:
-floating-point ``std::to_chars``) are absent or an array's dtype or shape
-is not covered, and ``io.meshio`` then writes with Python;
-``write_counts()`` (the counters ``io.native_writes.<writer>``) counts
-the files each writer wrote. The build runs as the span
-``io.native_build``. Host IO only: no device kernel.
+git-ignored ``_build/`` directory beside the package (``_native.Library``,
+keyed on the source, the flags and the host CPU's features). Where it
+cannot be built or loaded, every function takes its numpy counterpart, as
+the JAX package's do; ``native_available()`` says which, and
+``read_counts()`` (a view of the counters ``io.native_reads.<reader>``)
+counts the raw batches each reader served, so a run can show which one
+ran. The writers return False where the library or its writers
+(``mvs_writers_available``: floating-point ``std::to_chars``) are absent
+or an array's dtype or shape is not covered, and ``io.meshio`` then
+writes with Python; ``write_counts()`` (the counters
+``io.native_writes.<writer>``) counts the files each writer wrote. The
+build runs as the span ``io.native_build``. Host IO only: no device kernel.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
 import platform
 import subprocess
-import threading
 from typing import List, Optional, Tuple
 
 import numpy as np
 
-from ..utils.profiling import count, counters, reset_counters, span
+from .._native import Library
+from ..utils.profiling import count, counters, reset_counters
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SRC = os.path.join(_PKG, "csrc", "mvs_io.cpp")
-_BUILD_ROOT = os.path.join(_PKG, "_build")
 GXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-pthread")
-
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
-_tried = False
 READS = "io.native_reads."      # the read counters' prefix
 WRITES = "io.native_writes."    # the write counters' prefix
+
+_P, _I, _I64, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, \
+    ctypes.c_char_p
+EXPORTS = {
+    "mvs_load_raw_batch": (_I, (_P, _I, _I64, _P, _I)),
+    "mvs_write_raw": (_I, (_S, _P, _I64)),
+    "mvs_parse_npts": (_I64, (_S, _P, _I64)),
+    "mvs_parse_obj_counts": (_I, (_S, _P, _P, _P)),
+    "mvs_parse_obj": (_I, (_S, _P, _P, _P, _I64, _I64, _I64)),
+    "mvs_writers_available": (_I, ()),
+    "mvs_write_obj": (_I, (_S, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I)),
+    "mvs_write_npts": (_I, (_S, _P, _P, _I64)),
+}
 
 
 def _cpu_tag() -> bytes:
@@ -56,56 +61,29 @@ def _cpu_tag() -> bytes:
         return platform.processor().encode()
 
 
-def library_path() -> str:
-    """The library's path, keyed on the source, the flags and the CPU."""
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode() + _cpu_tag())
-    with open(_SRC, "rb") as f:
-        h.update(f.read())
-    return os.path.join(_BUILD_ROOT, "io-" + h.hexdigest()[:16],
-                        "libmvs_io.so")
-
-
-def _build() -> str:
-    """Compile the library if it is not there (to a temporary name, then
-    renamed, so a concurrent build never loads a partial file)."""
-    with span("io.native_build"):
-        out = library_path()
-        if not os.path.exists(out):
-            os.makedirs(os.path.dirname(out), exist_ok=True)
-            tmp = f"{out}.{os.getpid()}.tmp"
-            subprocess.run(["g++", *GXX_FLAGS, "-o", tmp, _SRC], check=True,
-                           capture_output=True, timeout=120)
-            os.replace(tmp, out)
+def _compile(tmp: str) -> str:
+    out = os.path.join(tmp, LIB.filename)
+    subprocess.run(["g++", *GXX_FLAGS, "-o", out, *LIB.sources()],
+                   check=True, capture_output=True, timeout=120)
     return out
 
 
+LIB = Library("io", "libmvs_io.so", ("mvs_io.cpp",), GXX_FLAGS, EXPORTS,
+              _compile, span="io.native_build", tag=_cpu_tag)
+_failed = False
+
+
 def _load_lib() -> Optional[ctypes.CDLL]:
-    global _lib, _tried
-    with _lock:
-        if _lib is not None or _tried:
-            return _lib
-        _tried = True
-        try:
-            lib = ctypes.CDLL(_build())
-        except (subprocess.SubprocessError, OSError):
-            return None
-        P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        for name, res, args in (
-                ("mvs_load_raw_batch", I, [P, I, I64, P, I]),
-                ("mvs_write_raw", I, [ctypes.c_char_p, P, I64]),
-                ("mvs_parse_npts", I64, [ctypes.c_char_p, P, I64]),
-                ("mvs_parse_obj_counts", I, [ctypes.c_char_p, P, P, P]),
-                ("mvs_parse_obj", I, [ctypes.c_char_p, P, P, P, I64, I64,
-                                      I64]),
-                ("mvs_writers_available", I, []),
-                ("mvs_write_obj", I, [ctypes.c_char_p, P, P, P, P, I64, I64,
-                                      I, I, I, I]),
-                ("mvs_write_npts", I, [ctypes.c_char_p, P, P, I64])):
-            fn = getattr(lib, name)
-            fn.restype = res
-            fn.argtypes = args
-        _lib = lib
-        return _lib
+    """The library, or None where it did not build or load (one attempt a
+    process: every function then takes its numpy fallback)."""
+    global _failed
+    if _failed:
+        return None
+    try:
+        return LIB.load()
+    except (subprocess.SubprocessError, OSError):
+        _failed = True
+        return None
 
 
 def native_available() -> bool:

@@ -1,10 +1,13 @@
 """ctypes wrappers of the hand-written CUDA kernels in ``csrc/``.
 
-Each wrapper checks device, dtype, shape and contiguity, allocates its
-outputs with ``torch.empty``, launches on PyTorch's current stream, raises
-on the launcher's ``cudaGetLastError()`` code, and adds one to its launch
+Each wrapper checks every tensor argument with ``_arg`` (type, dtype,
+shape, contiguity, then device, so the CPU tests reach the shape errors)
+and then that the call's tensors lie on a card, allocates its outputs
+with ``torch.empty``, launches on PyTorch's current stream, raises on the
+launcher's ``cudaGetLastError()`` code, and adds one to its launch
 counter ``kernels.launch.<kernel>`` (``utils.profiling.count``; once per
-call, however many CUDA kernels the call runs). The plain
+call, however many CUDA kernels the call runs). K3 also counts the
+(face, tile) pairs it binned, ``kernels.raster_pairs``. The plain
 PyTorch version of each kernel lives beside its caller in ``ops/``
 (``check_consistency_reference``, ``sample_oriented_points_reference``,
 ``raster_reference``; K4's are the stencil functions of ``ops/poisson``);
@@ -34,7 +37,6 @@ from . import _build
 
 KERNELS = ("consistency", "oriented_points", "raster", "stencil")
 LAUNCH = "kernels.launch."       # the launch counters' prefix
-raster_pairs = None   # (face, tile) pairs K3 binned in its last call
 
 
 def launch_counts() -> dict:
@@ -54,36 +56,43 @@ def _stream(t: torch.Tensor):
     return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
-def _require(t: torch.Tensor, name: str, dtype, shape, device):
-    # one test on the common path; the specific message only on failure
-    if (isinstance(t, torch.Tensor) and t.device == device and
-            t.dtype == dtype and t.shape == shape and t.is_contiguous()):
-        return
+def _arg(t, name: str, dtype, shape, device=None) -> torch.Size:
+    """Check the kernel argument ``t``, in this order: a tensor, of
+    ``dtype``, of ``shape``, contiguous, on ``device`` (where given: the
+    call's first tensor's). A letter in ``shape`` is any size, the same
+    wherever it recurs. Returns t.shape."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
+    sizes = {}
+    if t.dim() != len(shape) or any(
+            n != (sizes.setdefault(s, n) if isinstance(s, str) else s)
+            for s, n in zip(shape, t.shape)):
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    raise ValueError(f"{name}: must be contiguous")
+                         f"[{','.join(map(str, shape))}]")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    return t.shape
+
+
+def _load(kernel: str, t: torch.Tensor):
+    """The kernels' library, for a call whose checked tensors lie on t's
+    device, which must be a card."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{kernel} kernel needs CUDA tensors")
+    return _build.load()
 
 
 def _frames(disparity: torch.Tensor, K, R, t, name: str):
-    """(n, h, w) of a CUDA disparity stack [N,H,W] and its cameras."""
-    if disparity.device.type != "cuda":
-        raise ValueError(f"{name} kernel needs CUDA tensors")
-    if disparity.dim() != 3:
-        raise ValueError(f"disparity: shape {tuple(disparity.shape)}, "
-                         "expected [N,H,W]")
-    n, h, w = disparity.shape
+    """(n, h, w) of a disparity stack [N,H,W] and its cameras."""
+    n, h, w = _arg(disparity, "disparity", torch.float32, "NHW")
     dev = disparity.device
-    _require(disparity, "disparity", torch.float32, (n, h, w), dev)
-    _require(K, "K", torch.float32, (n, 3, 3), dev)
-    _require(R, "R", torch.float32, (n, 3, 3), dev)
-    _require(t, "t", torch.float32, (n, 3), dev)
+    _arg(K, "K", torch.float32, (n, 3, 3), dev)
+    _arg(R, "R", torch.float32, (n, 3, 3), dev)
+    _arg(t, "t", torch.float32, (n, 3), dev)
     if n > 65535 or h * w >= 2 ** 31:
         raise ValueError(f"{name}: {n} frames of {w}x{h} are too many")
     return n, h, w
@@ -106,8 +115,8 @@ def consistency(disparity: torch.Tensor, K: torch.Tensor, R: torch.Tensor,
         raise ValueError(f"consistency: offsets {tuple(offsets)}: 1 to "
                          f"{_K1_MAX_OFFSETS} of them, each within "
                          f"+-{_K1_MAX_HALO}")
+    lib = _load("consistency", disparity)
     out = torch.empty_like(disparity)
-    lib = _build.load()
     c_offs = (ctypes.c_int * len(offs))(*offs)
     err = lib.mvs_consistency(
         disparity.data_ptr(), K.data_ptr(), R.data_ptr(), t.data_ptr(),
@@ -130,18 +139,18 @@ def oriented_points(disparity: torch.Tensor, K: torch.Tensor,
     stride ``sample_radius``."""
     n, h, w = _frames(disparity, K, R, t, "oriented_points")
     dev = disparity.device
-    _require(centers, "centers", torch.float32, (n, 3), dev)
+    _arg(centers, "centers", torch.float32, (n, 3), dev)
     r, nbr_num, nbr_step = int(sample_radius), int(nbr_num), int(nbr_step)
     if r < 1 or nbr_num < 0 or nbr_num * abs(nbr_step) >= 2 ** 30:
         raise ValueError(f"oriented_points: sample_radius {r}, nbr_num "
                          f"{nbr_num}, nbr_step {nbr_step}")
+    lib = _load("oriented_points", disparity)
     s = -(-h // r) * -(-w // r)
     f32 = dict(dtype=torch.float32, device=dev)
     points = torch.empty((n, s, 3), **f32)
     normals = torch.empty((n, s, 3), **f32)
     conf = torch.empty((n, s), **f32)
     valid = torch.empty((n, s), dtype=torch.bool, device=dev)
-    lib = _build.load()
     err = lib.mvs_oriented_points(
         disparity.data_ptr(), K.data_ptr(), R.data_ptr(), t.data_ptr(),
         centers.data_ptr(), points.data_ptr(), normals.data_ptr(),
@@ -159,6 +168,7 @@ _RASTER_TILE = 16
 _RASTER_ITEM = 256
 _RASTER_MAX_SIDE = 16384
 _RASTER_MAX_BINS = 1 << 26     # the bins allocated before the host read
+PAIRS = "kernels.raster_pairs"  # (face, tile) pairs K3 binned, summed
 
 
 def _raster_launch(lib, uvz, faces, face_ok, zbuf, n_bins, cap, stream):
@@ -195,31 +205,24 @@ def raster(uvz: torch.Tensor, faces: torch.Tensor, face_ok: torch.Tensor,
     (face, tile) pair total and the error word of the vertex-id range
     check. The bins are allocated beforehand for 2 pairs a face and 2
     faces a tile; if the total does not fit, the last two kernels write
-    nothing and the call runs again with room for every pair. The total is
-    kept in ``raster_pairs``."""
-    global raster_pairs
-    if uvz.device.type != "cuda":
-        raise ValueError("raster kernel needs CUDA tensors")
+    nothing and the call runs again with room for every pair. The total
+    is added to the counter ``kernels.raster_pairs``."""
+    n, v, _ = _arg(uvz, "uvz", torch.float32, ("N", "V", 3))
     dev = uvz.device
-    if uvz.dim() != 3 or uvz.shape[2] != 3:
-        raise ValueError(f"uvz: shape {tuple(uvz.shape)}, expected [N,V,3]")
-    n, v = uvz.shape[:2]
-    nf = faces.shape[0]
-    _require(uvz, "uvz", torch.float32, (n, v, 3), dev)
-    _require(faces, "faces", torch.int32, (nf, 3), dev)
-    _require(face_ok, "face_ok", torch.bool, (n, nf), dev)
+    nf = _arg(faces, "faces", torch.int32, ("F", 3), dev)[0]
+    _arg(face_ok, "face_ok", torch.bool, (n, nf), dev)
     h, w = int(height), int(width)
     if not (0 <= h <= _RASTER_MAX_SIDE and 0 <= w <= _RASTER_MAX_SIDE):
         raise ValueError(f"raster: {w}x{h} image, at most "
                          f"{_RASTER_MAX_SIDE} pixels a side")
+    lib = _load("raster", uvz)
     if n == 0 or h == 0 or w == 0:          # nothing to render
-        raster_pairs = 0
+        count(PAIRS, 0)
         return torch.zeros((n, h, w), dtype=torch.float32, device=dev)
     n_bins = n * -(-h // _RASTER_TILE) * -(-w // _RASTER_TILE)
     if n > 65535 or n_bins >= 2 ** 30:
         raise ValueError(f"raster: {n} frames of {w}x{h} are too many")
     zbuf = torch.empty((n, h, w), dtype=torch.float32, device=dev)
-    lib = _build.load()
     stream = _stream(uvz)
     cap = min(2 * n * nf + 2 * n_bins, _RASTER_MAX_BINS)
     scratch = _raster_launch(lib, uvz, faces, face_ok, zbuf, n_bins, cap,
@@ -232,7 +235,7 @@ def raster(uvz: torch.Tensor, faces: torch.Tensor, face_ok: torch.Tensor,
             raise ValueError(f"raster: {total} (face, tile) pairs overflow "
                              "the int32 bin index")
         _raster_launch(lib, uvz, faces, face_ok, zbuf, n_bins, total, stream)
-    raster_pairs = total
+    count(PAIRS, total)
     count(LAUNCH + "raster")
     return zbuf
 
@@ -259,46 +262,21 @@ def _jacobi_coef(screen: float, omega: float):
     return (_f32(-screen), _f32(omega), _f32(1.0 / _f32(-6.0 - screen)))
 
 
-def _cube(t, name: str, side=None) -> int:
-    """Side G of the float32 contiguous cube t [G,G,G] (of side ``side``
-    if given). Needs no card, so it runs before the device check."""
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {t.dtype}, expected torch.float32")
-    g = t.shape[0] if t.dim() == 3 else 0
-    if (tuple(t.shape) != (g, g, g) or not 1 <= g <= _STENCIL_MAX_SIDE or
-            side is not None and g != side):
-        want = "[G,G,G]" if side is None else f"[{side},{side},{side}]"
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {want}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-    return g
-
-
-def _even(g: int, what: str):
-    if g % 2:
-        raise ValueError(f"{what}: side {g} is odd, the 2x2x2 blocks need "
-                         "an even side")
-
-
-def _card(*named):
-    """Raise unless every (name, tensor) lies on one CUDA device and no
-    two share memory (each kernel reads and writes distinct fields)."""
-    dev = named[0][1].device
-    if dev.type != "cuda":
-        raise ValueError("stencil kernel needs CUDA tensors")
-    for name, t in named[1:]:
-        if t.device != dev:
-            raise ValueError(f"{name}: on {t.device}, expected {dev}")
-    ptrs = [t.data_ptr() for _, t in named]
-    if len(set(ptrs)) != len(ptrs):
+def _stencil_launch(fn, fields, g: int, *scalars):
+    """Launch K4's ``fn`` on ``fields`` (in the launcher's order; None is
+    a null pointer), their side ``g`` and ``scalars``. The fields must lie
+    on a card and no two may share memory: each kernel reads and writes
+    distinct fields."""
+    given = [f for f in fields if f is not None]
+    lib = _load("stencil", given[0])
+    if len({f.data_ptr() for f in given}) != len(given):
         raise ValueError("stencil: the fields must not share memory")
-
-
-def _stencil_launch(fn, *args):
-    lib = _build.load()
-    err = getattr(lib, fn)(*args)
+    if not 1 <= g <= _STENCIL_MAX_SIDE:
+        raise ValueError(f"stencil: side {g}, expected 1 to "
+                         f"{_STENCIL_MAX_SIDE}")
+    err = getattr(lib, fn)(*(None if f is None else f.data_ptr()
+                             for f in fields), g, *scalars,
+                           _stream(given[0]))
     _build.check(lib, err, "stencil")
     count(LAUNCH + "stencil")
 
@@ -308,23 +286,20 @@ def stencil_jacobi(x: torch.Tensor, b: torch.Tensor, out: torch.Tensor, *,
     """K4: one damped-Jacobi sweep of (L - screen) x = b (the unscaled
     periodic 7-point stencil L, diagonal -6 - screen) from x [G,G,G] into
     ``out``; returns ``out``."""
-    g = _cube(x, "x")
-    _cube(b, "b", g)
-    _cube(out, "out", g)
-    _card(("x", x), ("b", b), ("out", out))
-    _stencil_launch("mvs_stencil_sweep", x.data_ptr(), b.data_ptr(),
-                    out.data_ptr(), g, _SWEEP_JACOBI,
-                    *_jacobi_coef(screen, omega), _stream(x))
+    cube = _arg(x, "x", torch.float32, "GGG")
+    _arg(b, "b", torch.float32, cube, x.device)
+    _arg(out, "out", torch.float32, cube, x.device)
+    _stencil_launch("mvs_stencil_sweep", (x, b, out), cube[0], _SWEEP_JACOBI,
+                    *_jacobi_coef(screen, omega))
     return out
 
 
 def stencil_matvec(x: torch.Tensor, *, screen: float) -> torch.Tensor:
     """K4: (L - screen) x of x [G,G,G], a new field."""
-    g = _cube(x, "x")
-    _card(("x", x))
+    g = _arg(x, "x", torch.float32, "GGG")[0]
     out = torch.empty_like(x)
-    _stencil_launch("mvs_stencil_sweep", x.data_ptr(), None, out.data_ptr(),
-                    g, _SWEEP_MATVEC, *_jacobi_coef(screen, 1.0), _stream(x))
+    _stencil_launch("mvs_stencil_sweep", (x, None, out), g, _SWEEP_MATVEC,
+                    *_jacobi_coef(screen, 1.0))
     return out
 
 
@@ -333,26 +308,27 @@ def stencil_residual_restrict(x: torch.Tensor, b: torch.Tensor, *,
     """K4: 4 * restrict2(b - (L - screen) x) of x, b [G,G,G] (G even): the
     coarse right-hand side [G/2]^3 of a V-cycle, without the fine
     residual."""
-    g = _cube(x, "x")
-    _cube(b, "b", g)
-    _even(g, "stencil_residual_restrict")
-    _card(("x", x), ("b", b))
+    cube = _arg(x, "x", torch.float32, "GGG")
+    _arg(b, "b", torch.float32, cube, x.device)
+    g = cube[0]
+    if g % 2:
+        raise ValueError(f"stencil_residual_restrict: side {g} is odd, "
+                         "the 2x2x2 blocks need an even side")
     out = torch.empty((g // 2,) * 3, dtype=x.dtype, device=x.device)
-    _stencil_launch("mvs_stencil_sweep", x.data_ptr(), b.data_ptr(),
-                    out.data_ptr(), g, _SWEEP_RESTRICT,
-                    *_jacobi_coef(screen, 1.0), _stream(x))
+    _stencil_launch("mvs_stencil_sweep", (x, b, out), g, _SWEEP_RESTRICT,
+                    *_jacobi_coef(screen, 1.0))
     return out
 
 
 def stencil_prolong_add(x: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     """K4: x [G,G,G] += e [G/2]^3 broadcast over 2x2x2 blocks (G even), in
     place; returns x."""
-    g = _cube(x, "x")
-    _even(g, "stencil_prolong_add")
-    _cube(e, "e", g // 2)
-    _card(("x", x), ("e", e))
-    _stencil_launch("mvs_stencil_prolong", x.data_ptr(), e.data_ptr(), g,
-                    _stream(x))
+    g = _arg(x, "x", torch.float32, "GGG")[0]
+    if g % 2:
+        raise ValueError(f"stencil_prolong_add: side {g} is odd, the 2x2x2 "
+                         "blocks need an even side")
+    _arg(e, "e", torch.float32, (g // 2,) * 3, x.device)
+    _stencil_launch("mvs_stencil_prolong", (x, e), g)
     return x
 
 
@@ -360,14 +336,14 @@ def stencil_coarsest(x: torch.Tensor, b: torch.Tensor, *, screen: float,
                      omega: float, iters: int) -> torch.Tensor:
     """K4: ``iters`` damped-Jacobi sweeps of x [G,G,G] in place, in one
     launch of one block (G^3 <= STENCIL_COARSEST_CELLS); returns x."""
-    g = _cube(x, "x")
-    _cube(b, "b", g)
+    cube = _arg(x, "x", torch.float32, "GGG")
+    _arg(b, "b", torch.float32, cube, x.device)
+    g = cube[0]
     if g ** 3 > STENCIL_COARSEST_CELLS or int(iters) < 0:
         raise ValueError(f"stencil_coarsest: {g}^3 cells, {iters} sweeps "
                          f"(at most {STENCIL_COARSEST_CELLS} cells)")
-    _card(("x", x), ("b", b))
-    _stencil_launch("mvs_stencil_coarsest", x.data_ptr(), b.data_ptr(), g,
-                    int(iters), *_jacobi_coef(screen, omega), _stream(x))
+    _stencil_launch("mvs_stencil_coarsest", (x, b), g, int(iters),
+                    *_jacobi_coef(screen, omega))
     return x
 
 
@@ -375,11 +351,10 @@ def stencil_box_blur(a: torch.Tensor, out: torch.Tensor, *,
                      axis: int) -> torch.Tensor:
     """K4: one periodic 3-tap box pass of a [G,G,G] along ``axis`` (0 z,
     1 y, 2 x), ((a + a[i-1]) + a[i+1]) / 3, into ``out``; returns out."""
-    g = _cube(a, "a")
-    _cube(out, "out", g)
+    cube = _arg(a, "a", torch.float32, "GGG")
+    _arg(out, "out", torch.float32, cube, a.device)
     if axis not in (0, 1, 2):
         raise ValueError(f"stencil_box_blur: axis {axis}, expected 0, 1 or 2")
-    _card(("a", a), ("out", out))
-    _stencil_launch("mvs_stencil_blur", a.data_ptr(), out.data_ptr(), g,
-                    axis, _f32(1.0 / 3.0), _stream(a))
+    _stencil_launch("mvs_stencil_blur", (a, out), cube[0], axis,
+                    _f32(1.0 / 3.0))
     return out

@@ -299,14 +299,13 @@ def _dilate_occupancy(wgt, radius: int):
 
 
 def _extract_mesh(field, occ, origin, spacing):
-    """Uncapped surface_nets, copied to the host. Sign flip: chi > iso
+    """surface_nets, copied to the host. Sign flip: chi > iso
     inside (normals outward); surface nets expects negative inside like a
     TSDF. Returns numpy (verts, faces, cells) — cells are the per-vertex
     integer (z,y,x) owning grid cells (exact identity for cross-slab
     welds)."""
     tsdf_like = TSDF(-field, occ.to(field.dtype), origin, float(spacing))
-    mesh = surface_nets(tsdf_like, min_weight=0.5, max_vertices=None,
-                        max_faces=None)
+    mesh = surface_nets(tsdf_like, min_weight=0.5)
     return (mesh.vertices.cpu().numpy(),
             mesh.faces.cpu().numpy().astype(np.int32),
             mesh.cells.cpu().numpy().astype(np.int32))

@@ -5,9 +5,9 @@ PyTorch counterpart of ``multiviewstitch_tpu/ops/tsdf.py``:
      into every depth frame; signed distance = observed depth - voxel
      depth, truncated to +-trunc and averaged over observing frames);
   2. surface nets: one vertex per sign-change cell (mean of its edge
-     zero crossings), two triangles per grid edge with a sign change,
-     with the JAX package's vertex/face capacities, or none (Poisson and
-     ``fuse_multi_sequence``, which keep every vertex and face).
+     zero crossings), two triangles per grid edge with a sign change;
+     every vertex and face is kept (the JAX package's 65,536 / 131,072
+     capacities are a TPU shape and not ported).
 """
 
 from __future__ import annotations
@@ -65,12 +65,10 @@ def fuse_tsdf(disparity, cams: CameraBatch, origin, spacing: float, *,
 
 
 class SurfaceMesh(NamedTuple):
-    vertices: torch.Tensor    # [cap_v,3]
-    faces: torch.Tensor       # [cap_f,3], -1 padded
-    num_vertices: int
-    num_faces: int
-    cells: torch.Tensor       # [cap_v,3] int64 (z,y,x) owning grid cell, -1
-    #                           padded: exact identity for cross-slab welds
+    vertices: torch.Tensor    # [V,3]
+    faces: torch.Tensor       # [F,3] int64
+    cells: torch.Tensor       # [V,3] int64 (z,y,x) owning grid cell: exact
+    #                           identity for cross-slab welds
 
 
 _CORNERS = [(0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1),
@@ -79,14 +77,11 @@ _EDGES = [(0, 1), (0, 2), (0, 4), (1, 3), (1, 5), (2, 3), (2, 6),
           (3, 7), (4, 5), (4, 6), (5, 7), (6, 7)]
 
 
-def surface_nets(tsdf: TSDF, *, max_vertices: int | None = 65536,
-                 max_faces: int | None = 131072,
-                 min_weight: float = 1.0) -> SurfaceMesh:
+def surface_nets(tsdf: TSDF, *, min_weight: float = 1.0) -> SurfaceMesh:
     """Extract the zero isosurface of a [Gz,Gy,Gx] TSDF (storage axes
     z, y, x; vertex coordinates x, y, z) over voxels whose weight is
-    >= ``min_weight``, keeping the first max_vertices / max_faces like the
-    JAX package; a cap of None keeps every vertex or face, in buffers of
-    exactly that size. The grid may be rectangular (Poisson's Z-slabs)."""
+    >= ``min_weight``: every vertex and face, in tensors of exactly their
+    count. The grid may be rectangular (Poisson's Z-slabs)."""
     v = tsdf.values
     dev = v.device
     Gz, Gy, Gx = v.shape
@@ -128,19 +123,13 @@ def surface_nets(tsdf: TSDF, *, max_vertices: int | None = 65536,
 
     flat_surf = has_surf.reshape(-1)
     ids = torch.cumsum(flat_surf.to(torch.int64), 0) - 1
-    n_surf = int(flat_surf.sum())
-    cap_v = n_surf if max_vertices is None else max_vertices
-    num_v = min(n_surf, cap_v)
-    sel = (flat_surf & (ids < cap_v)).nonzero()[:, 0]
+    sel = flat_surf.nonzero()[:, 0]         # vertex ids in cell order
     cz = sel // ((Gy - 1) * (Gx - 1))
     cy = (sel // (Gx - 1)) % (Gy - 1)
     cx = sel % (Gx - 1)
     base = torch.stack([cx, cy, cz], -1).to(torch.float32)
-    world = tsdf.origin + tsdf.spacing * (base + vpos.reshape(-1, 3)[sel])
-    verts = torch.zeros((cap_v, 3), dtype=torch.float32, device=dev)
-    verts[ids[sel]] = world
-    cells = torch.full((cap_v, 3), -1, dtype=torch.int64, device=dev)
-    cells[ids[sel]] = torch.stack([cz, cy, cx], -1)
+    verts = tsdf.origin + tsdf.spacing * (base + vpos.reshape(-1, 3)[sel])
+    cells = torch.stack([cz, cy, cx], -1)
     id_grid = torch.where(has_surf.reshape(-1), ids,
                           torch.full_like(ids, -1)).reshape(has_surf.shape)
     del vpos
@@ -174,13 +163,7 @@ def surface_nets(tsdf: TSDF, *, max_vertices: int | None = 65536,
                                  torch.where(flip, q[2], q[1])], -1))
         tris.append(torch.stack([q[0], torch.where(flip, q[2], q[3]),
                                  torch.where(flip, q[3], q[2])], -1))
-    allf = torch.cat(tris)
-    cap_f = len(allf) if max_faces is None else max_faces
-    allf = allf[:cap_f]
-    num_f = int(allf.shape[0])
-    faces = torch.full((cap_f, 3), -1, dtype=torch.int64, device=dev)
-    faces[:num_f] = allf
-    return SurfaceMesh(verts, faces, num_v, num_f, cells)
+    return SurfaceMesh(verts, torch.cat(tris), cells)
 
 
 def fuse_multi_sequence(seq_disparities, seq_cams, transforms, *,
@@ -189,8 +172,7 @@ def fuse_multi_sequence(seq_disparities, seq_cams, transforms, *,
     """Fuse several sequences' depth maps into one TSDF in the reference
     frame (sequence k's transform T_k maps its world into the reference
     frame; the grid spans the points plus a 5 % margin, truncation 3
-    voxels) and extract the whole surface (no vertex or face cap, unlike
-    the JAX package's 65,536 / 131,072). Returns (vertices, faces, tsdf) with
+    voxels) and extract the whole surface. Returns (vertices, faces, tsdf) with
     numpy vertices/faces. Spans ``tsdf.fuse`` (the bounds and the fusion)
     and ``tsdf.extract``; counters ``tsdf.frames`` and ``tsdf.vertices``."""
     with span("tsdf.fuse"):
@@ -198,7 +180,7 @@ def fuse_multi_sequence(seq_disparities, seq_cams, transforms, *,
                                min_dsp, max_dsp)
     count("tsdf.frames", sum(d.shape[0] for d in seq_disparities))
     with span("tsdf.extract"):
-        mesh = surface_nets(tsdf, max_vertices=None, max_faces=None)
+        mesh = surface_nets(tsdf)
         verts = mesh.vertices.cpu().numpy()
         faces = mesh.faces.cpu().numpy().astype(np.int32)
     count("tsdf.vertices", len(verts))

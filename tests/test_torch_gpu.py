@@ -30,6 +30,7 @@ from multiviewstitch_tpu_torch.pipeline.fixtures import (make_scene,
                                                          ring_cameras,
                                                          uv_sphere)
 from multiviewstitch_tpu_torch.core.cameras import CameraBatch
+from multiviewstitch_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -318,9 +319,16 @@ def _k3_case(name):
     return uvz, faces, ok, h, w
 
 
+def _k3_pairs():
+    """The (face, tile) pairs K3 counted since ``_k3_matches_plain`` reset
+    the counter."""
+    return profiling.counters(kernels.PAIRS)[kernels.PAIRS]
+
+
 def _k3_matches_plain(cuda, uvz, faces, ok, h, w):
     uvz, faces, ok = (torch.as_tensor(a, device=cuda) for a in (uvz, faces,
                                                                 ok))
+    profiling.reset_counters(kernels.PAIRS)
     got = _counted("raster", lambda: tr.raster(uvz, faces, ok, height=h,
                                                width=w))
     ref = tr.raster_reference(uvz, faces, ok, height=h, width=w)
@@ -337,7 +345,7 @@ def test_k3_binning_cases_match_plain(cuda, name):
     if name in ("one face over every tile", "more pairs than the first bins"):
         assert (got > 0).all()
         n_tiles = -(-h // 16) * -(-w // 16)
-        assert kernels.raster_pairs == len(faces) * n_tiles   # its own count
+        assert _k3_pairs() == len(faces) * n_tiles   # its own count
     if name == "3000 faces in one tile":
         assert (got[0, 16:32, 16:32] > 0).sum() > 100
         assert (got[0, :16] == 0).all() and (got[0, 32:] == 0).all()
@@ -369,7 +377,7 @@ def test_k3_zero_pairs_writes_zeros(cuda, name):
     ok = np.zeros((2, len(faces)), bool)
     got = _k3_matches_plain(cuda, uvz, faces, ok, h, w)
     assert got.shape == (2, h, w) and (got == 0).all()
-    assert kernels.raster_pairs == 0
+    assert _k3_pairs() == 0
 
 
 def test_k3_raises_on_out_of_range_face_id(cuda):

@@ -79,13 +79,13 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 def test_kernel_library_is_keyed_on_sources_and_ignored_by_git():
     from multiviewstitch_tpu_torch.kernels import _build
-    p = _build.library_path()
-    assert p == _build.library_path()
+    p = _build.LIB.path()
+    assert p == _build.LIB.path()
     assert "-fmad=false" in _build.NVCC_FLAGS
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     rel = os.path.relpath(p, REPO)
     proc = subprocess.run(["git", "check-ignore", "-q", rel], cwd=REPO)
     assert proc.returncode == 0, f"{rel} is not git-ignored"
-    srcs = {os.path.basename(s) for s in _build._sources()}
+    srcs = {os.path.basename(s) for s in _build.LIB.sources()}
     assert {"consistency.cu", "sampling.cu", "raster.cu",
             "stencil.cu"} <= srcs

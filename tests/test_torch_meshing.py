@@ -90,12 +90,12 @@ def test_surface_nets_min_weight_and_cells_match_jax(min_weight):
     nv, nf = int(jmesh.num_vertices), int(jmesh.num_faces)
     print(f"surface nets, min_weight {min_weight}: {nv} vertices, {nf} faces")
     assert nv > 50 and nf > 50
-    assert (tmesh.num_vertices, tmesh.num_faces) == (nv, nf)
+    assert (len(tmesh.vertices), len(tmesh.faces)) == (nv, nf)
     np.testing.assert_array_equal(tmesh.cells.numpy(),
-                                  np.asarray(jmesh.cells))
-    np.testing.assert_array_equal(tmesh.faces[:nf].numpy(),
+                                  np.asarray(jmesh.cells[:nv]))
+    np.testing.assert_array_equal(tmesh.faces.numpy(),
                                   np.asarray(jmesh.faces[:nf]))
-    np.testing.assert_allclose(tmesh.vertices[:nv].numpy(),
+    np.testing.assert_allclose(tmesh.vertices.numpy(),
                                np.asarray(jmesh.vertices[:nv]), atol=1e-5)
-    c = tmesh.cells[:nv].numpy()
+    c = tmesh.cells.numpy()
     assert (c[:, 0] < 17).all() and (c >= 0).all()

@@ -26,10 +26,10 @@ def require_native():
 
 
 def test_library_lives_in_the_ignored_build_dir():
-    rel = os.path.relpath(nl.library_path(), REPO)
+    rel = os.path.relpath(nl.LIB.path(), REPO)
     assert rel.startswith(os.path.join("multiviewstitch_tpu_torch",
                                        "_build"))
-    assert os.path.exists(nl.library_path())
+    assert os.path.exists(nl.LIB.path())
     assert subprocess.run(["git", "check-ignore", "-q", rel],
                           cwd=REPO).returncode == 0
 

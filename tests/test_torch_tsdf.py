@@ -52,27 +52,11 @@ def test_fuse_tsdf_and_surface_nets_match_jax(scene):
     nv, nf = int(jm.num_vertices), int(jm.num_faces)
     print(f"surface nets: {nv} vertices, {nf} faces")
     assert nv > 100 and nf > 100
-    assert (tm.num_vertices, tm.num_faces) == (nv, nf)
-    np.testing.assert_allclose(tm.vertices[:nv].numpy(),
+    assert (len(tm.vertices), len(tm.faces)) == (nv, nf)
+    np.testing.assert_allclose(tm.vertices.numpy(),
                                np.asarray(jm.vertices[:nv]), atol=1e-5)
-    np.testing.assert_array_equal(tm.faces[:nf].numpy(),
+    np.testing.assert_array_equal(tm.faces.numpy(),
                                   np.asarray(jm.faces[:nf]))
-
-
-def test_surface_nets_capacity_truncates_like_jax(scene):
-    d, K, R, t, w, h, jcams = scene
-    origin = np.asarray([-0.7, -0.7, -0.7], np.float32)
-    spacing = np.float32(1.4 / (G - 1))
-    jts = jt.fuse_tsdf(jnp.asarray(d), jcams, jnp.asarray(origin),
-                       jnp.asarray(spacing), grid=G)
-    tts = tt.TSDF(torch.as_tensor(np.array(jts.values)),
-                  torch.as_tensor(np.array(jts.weights)),
-                  torch.as_tensor(origin), float(spacing))
-    jm = jt.surface_nets(jts, max_vertices=64, max_faces=100)
-    tm = tt.surface_nets(tts, max_vertices=64, max_faces=100)
-    assert (tm.num_vertices, tm.num_faces) == (int(jm.num_vertices),
-                                               int(jm.num_faces)) == (64, 100)
-    np.testing.assert_array_equal(tm.faces.numpy(), np.asarray(jm.faces))
 
 
 def test_fuse_multi_sequence_matches_jax(scene):
@@ -109,8 +93,8 @@ def test_fuse_multi_sequence_keeps_every_vertex_past_the_jax_caps():
     v, f, ts = tt.fuse_multi_sequence(
         [sc.disparity], [sc.cams], [Similarity.identity(device="cpu")],
         grid=160, min_dsp=1e-3, max_dsp=10.0)
-    whole = tt.surface_nets(ts, max_vertices=None, max_faces=None)
+    whole = tt.surface_nets(ts)
     print(f"full ring at grid 160: {len(v)} vertices, {len(f)} faces")
-    assert len(v) == whole.num_vertices > 65536
-    assert len(f) == whole.num_faces > 131072
+    assert len(v) == len(whole.vertices) > 65536
+    assert len(f) == len(whole.faces) > 131072
     assert f.min() >= 0 and f.max() == len(v) - 1
