@@ -36,15 +36,17 @@ pass, and ``_matvec`` (``_cg``) one pass. The splat, the divergence, the
 iso gather, the dilation and the extraction stay plain PyTorch.
 
 Above grid 256 the surface is extracted in overlapping Z-slabs (each face
-owned by exactly one slab; duplicated halo vertices are welded on the host
-by integer cell key). Unlike the JAX package, the extraction has no vertex
-or face capacity, so no mesh is truncated. The three steps run as the
+owned by exactly one slab; duplicated halo vertices are welded on the
+field's device by one int64 cell key, and the welded mesh is copied to
+the host once). Unlike the JAX package, the extraction has no vertex or
+face capacity, so no mesh is truncated. The three steps run as the
 spans ``poisson.field``, ``poisson.dilate`` and ``poisson.extract``
 (``utils.profiling``); inside the extraction each slab (its surface nets
-and the copy to the host) is a ``poisson.slab`` span and the host weld a
-``poisson.weld`` span. Counters: ``poisson.vcycles``, ``poisson.slabs``,
-``poisson.slab_vertices`` (into the weld) and ``poisson.vertices`` (the
-extracted mesh's).
+and face ownership) is a ``poisson.slab`` span and the weld with the copy
+to the host a ``poisson.weld`` span. Counters: ``poisson.vcycles``,
+``poisson.slabs``, ``poisson.slab_vertices`` (into the weld),
+``poisson.vertices`` (the extracted mesh's) and ``poisson.extract_copies``
+(mesh arrays copied to the host).
 """
 
 from __future__ import annotations
@@ -298,31 +300,64 @@ def _dilate_occupancy(wgt, radius: int):
     return occ
 
 
-def _extract_mesh(field, occ, origin, spacing):
-    """surface_nets, copied to the host. Sign flip: chi > iso
-    inside (normals outward); surface nets expects negative inside like a
-    TSDF. Returns numpy (verts, faces, cells) — cells are the per-vertex
-    integer (z,y,x) owning grid cells (exact identity for cross-slab
+def _surface(field, occ, origin, spacing):
+    """surface_nets on the field's device. Sign flip: chi > iso inside
+    (normals outward); surface nets expects negative inside like a TSDF.
+    Returns the SurfaceMesh (vertices, faces, and cells: the per-vertex
+    integer (z,y,x) owning grid cells, an exact identity for cross-slab
     welds)."""
     tsdf_like = TSDF(-field, occ.to(field.dtype), origin, float(spacing))
-    mesh = surface_nets(tsdf_like, min_weight=0.5)
-    return (mesh.vertices.cpu().numpy(),
-            mesh.faces.cpu().numpy().astype(np.int32),
-            mesh.cells.cpu().numpy().astype(np.int32))
+    return surface_nets(tsdf_like, min_weight=0.5)
+
+
+def _to_host(t) -> np.ndarray:
+    """One mesh array copied to the host (counted)."""
+    count("poisson.extract_copies")
+    return t.cpu().numpy()
+
+
+def _extract_mesh(field, occ, origin, spacing):
+    """_surface, copied to the host: numpy (verts, faces, cells)."""
+    mesh = _surface(field, occ, origin, spacing)
+    return (_to_host(mesh.vertices),
+            _to_host(mesh.faces).astype(np.int32),
+            _to_host(mesh.cells).astype(np.int32))
+
+
+def _weld(verts, cells, faces, dims: Tuple[int, int]):
+    """Weld vertices that share a global integer cell (z, y, x), on the
+    tensors' device. ``dims`` bounds the y and x cell indices, so the key
+    (z * dims[0] + y) * dims[1] + x sorts as the (z, y, x) rows do: the
+    welded vertices come in that row order, each at its first occurrence,
+    and faces that collapse onto a repeated vertex are dropped. Returns
+    (verts, faces, cells) of the welded mesh."""
+    key = (cells[:, 0] * dims[0] + cells[:, 1]) * dims[1] + cells[:, 2]
+    uniq, inv = torch.unique(key, sorted=True, return_inverse=True)
+    n = len(key)
+    first = torch.full((len(uniq),), n, dtype=torch.int64,
+                       device=key.device).scatter_reduce_(
+        0, inv, torch.arange(n, device=key.device), "amin")
+    fw = inv[faces]
+    good = (fw[:, 0] != fw[:, 1]) & (fw[:, 1] != fw[:, 2]) & \
+        (fw[:, 0] != fw[:, 2])
+    return verts[first], fw[good], cells[first]
 
 
 def _extract_mesh_slabs(field, occ, origin, spacing, slab: int = 64,
                         return_cells: bool = False):
     """Z-slab extraction: overlapping slabs of ``slab`` interior cell
     layers (+1 halo cell layer each side so boundary faces see all four of
-    their cells), welded on the host by GLOBAL INTEGER CELL keys —
-    surface nets emits exactly one vertex per cell, so (z+slab_offset, y,
-    x) is an exact identity. Faces are owned by the slab containing their
-    minimum global cell z, so each face is emitted exactly once."""
-    G = field.shape[0]
+    their cells), welded on the field's device by GLOBAL INTEGER CELL keys
+    (``_weld``) — surface nets emits exactly one vertex per cell, so
+    (z+slab_offset, y, x) is an exact identity. Faces are owned by the slab
+    containing their minimum global cell z, so each face is emitted exactly
+    once. The welded mesh is copied to the host once: numpy float32
+    vertices and int64 faces (and int64 cells with ``return_cells``)."""
+    G, Gy, Gx = field.shape
     n_cells = G - 1
     origin_np = origin.cpu().numpy()
     all_v, all_f, all_c = [], [], []
+    base = 0
     for z0 in range(0, n_cells, slab):
         z1 = min(z0 + slab, n_cells)
         lo = max(z0 - 1, 0)
@@ -331,42 +366,31 @@ def _extract_mesh_slabs(field, occ, origin, spacing, slab: int = 64,
         sub_origin[2] += lo * float(spacing)         # z offset (x,y,z)
         count("poisson.slabs")
         with span("poisson.slab", z0=z0):
-            v, f, c = _extract_mesh(field[lo:hi], occ[lo:hi],
-                                    torch.as_tensor(sub_origin,
-                                                    device=field.device),
-                                    spacing)
+            mesh = _surface(field[lo:hi], occ[lo:hi],
+                            torch.as_tensor(sub_origin, device=field.device),
+                            spacing)
+            v, f, c = mesh.vertices, mesh.faces, mesh.cells
             if len(f) == 0:
                 continue
-            c = c.astype(np.int64)
             c[:, 0] += lo                            # global cell z
             # own faces whose min global cell z lies in [z0, z1)
-            fz = c[f][:, :, 0].min(1)
+            fz = c[:, 0][f].amin(1)
             keep = (fz >= z0) & (fz < z1) if z1 < n_cells else (fz >= z0)
-            f = f[keep]
-            base = sum(len(x) for x in all_v)
             all_v.append(v)
             all_c.append(c)
-            all_f.append(f + base)
+            all_f.append(f[keep] + base)
+            base += len(v)
     if not all_v:
         return np.zeros((0, 3), np.float32), np.zeros((0, 3), np.int64)
     with span("poisson.weld"):
-        V = np.concatenate(all_v)
-        C = np.concatenate(all_c)
-        F = np.concatenate(all_f)
-        # weld halo duplicates by exact global cell key
-        uniq, inv = np.unique(C, axis=0, return_inverse=True)
-        inv = inv.reshape(-1)
-        first = np.zeros(len(uniq), np.int64)
-        first[inv[::-1]] = np.arange(len(V))[::-1]   # first occurrence
-        Vw = V[first]
-        Fw = inv[F]
-        good = (Fw[:, 0] != Fw[:, 1]) & (Fw[:, 1] != Fw[:, 2]) & \
-            (Fw[:, 0] != Fw[:, 2])
+        V = torch.cat(all_v)
+        Vw, Fw, Cw = _weld(V, torch.cat(all_c), torch.cat(all_f),
+                           (Gy - 1, Gx - 1))
+        out = (_to_host(Vw), _to_host(Fw)) + \
+            ((_to_host(Cw),) if return_cells else ())
     count("poisson.slab_vertices", len(V))
     count("poisson.vertices", len(Vw))
-    if return_cells:
-        return Vw.astype(np.float32), Fw[good], C[first]
-    return Vw.astype(np.float32), Fw[good]
+    return out
 
 
 def reconstruct_poisson(points: np.ndarray, normals: np.ndarray, *,

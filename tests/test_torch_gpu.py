@@ -31,6 +31,7 @@ from multiviewstitch_tpu_torch.pipeline.fixtures import (make_scene,
                                                          uv_sphere)
 from multiviewstitch_tpu_torch.core.cameras import CameraBatch
 from multiviewstitch_tpu_torch.utils import profiling
+from poisson_weld_oracle import slabs_numpy
 
 torch.set_num_threads(2)
 
@@ -569,6 +570,46 @@ def test_reconstruct_poisson_cuda_matches_cpu(cuda, depth):
     assert float(ch) < 0.05 * voxel
     r = np.linalg.norm(gv, axis=1)
     assert abs(r.mean() - 1.0) < 0.01
+
+
+def _slab_case(name, cuda):
+    """(field, occ, origin, spacing, slab) of a grid the extraction slabs:
+    the 384-wide sheet of tests/test_torch_tracing.py at z 31.5 (every
+    vertex in the cell layer both slabs hold), or an analytic sphere field
+    at 512^3 in a 6-voxel band."""
+    if name == "sheet":
+        z = torch.arange(40, dtype=torch.float32, device=cuda)
+        field = (31.5 - z)[:, None, None].expand(40, 384, 384).contiguous()
+        occ = torch.ones(field.shape, dtype=torch.bool, device=cuda)
+        return field, occ, torch.zeros(3, device=cuda), 1.0, 32
+    ax = torch.arange(512, dtype=torch.float32, device=cuda) - 255.7
+    r = torch.sqrt(ax[:, None, None] ** 2 + ax[None, :, None] ** 2
+                   + ax[None, None, :] ** 2)
+    return (200.3 - r, (r - 200.3).abs() < 6,
+            torch.tensor([-1.2, -1.1, -1.3], device=cuda), 2.4 / 511, 64)
+
+
+@pytest.mark.parametrize("name", ["sheet", "sphere512"])
+def test_slab_weld_cuda_matches_numpy_weld(cuda, name):
+    """The Z-slab extraction welded on the card gives, bit for bit, the
+    host numpy weld of the same slabs' surface nets (also run on the card),
+    in two copies to the host (three with the cells)."""
+    from multiviewstitch_tpu_torch.ops import poisson as P
+    field, occ, o, spacing, slab = _slab_case(name, cuda)
+    want = slabs_numpy(field, occ, o, spacing, slab)
+    for cells, copies in ((False, 2), (True, 3)):
+        before = profiling.counters("poisson.")
+        got = P._extract_mesh_slabs(field, occ, o, spacing, slab=slab,
+                                    return_cells=cells)
+        after = profiling.counters("poisson.")
+        assert after["poisson.extract_copies"] - before.get(
+            "poisson.extract_copies", 0) == copies
+        welded = after["poisson.slab_vertices"] - before.get(
+            "poisson.slab_vertices", 0)
+        assert welded > len(got[0]) > 10000
+        assert len(got) == copies
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
 def _solvers_without_host_sync(cuda, plain: bool) -> int:

@@ -12,7 +12,8 @@ Tolerances:
   libraries sum the CG dot products and the iso level in other orders);
   weight grids atol 1e-6;
 - the port's slab extraction equals its whole-grid extraction exactly
-  (cells and faces; positions within 1e-5);
+  (cells and faces; positions within 1e-5), and its device weld equals
+  the host numpy weld (tests/poisson_weld_oracle.py) bit for bit;
 - reconstruct_poisson at depth 5 and 6: vertex and face counts within 1 %,
   symmetric chamfer distance < 0.1 voxel."""
 
@@ -23,6 +24,7 @@ import torch
 
 from multiviewstitch_tpu.ops import poisson as JP
 from multiviewstitch_tpu_torch.ops import poisson as TP
+from poisson_weld_oracle import slabs_numpy, weld_numpy
 
 torch.set_num_threads(2)
 
@@ -119,17 +121,24 @@ def test_poisson_field_matches_jax(grid, solver):
     np.testing.assert_allclose(tw.numpy(), jw, atol=1e-6)
 
 
-def test_slab_extraction_matches_whole_grid():
-    """Z-slab extraction (halo slabs + exact integer-cell welding + min-z
-    face ownership) reproduces the port's whole-volume extraction."""
+@pytest.fixture(scope="module")
+def sphere64():
+    """The sphere cloud's field at grid 64, its dilated occupancy, origin
+    and spacing."""
     pts, nrm = _sphere_cloud()
     origin, spacing = _setup(pts, 64)
     field, wgt = TP.poisson_field(torch.as_tensor(pts), torch.as_tensor(nrm),
                                   torch.ones(len(pts), dtype=torch.bool),
                                   torch.as_tensor(origin), float(spacing),
                                   grid=64, cg_iters=200)
-    occ = TP._dilate_occupancy(wgt, 6)
-    o = torch.as_tensor(origin)
+    return field, TP._dilate_occupancy(wgt, 6), torch.as_tensor(origin), \
+        spacing
+
+
+def test_slab_extraction_matches_whole_grid(sphere64):
+    """Z-slab extraction (halo slabs + exact integer-cell welding + min-z
+    face ownership) reproduces the port's whole-volume extraction."""
+    field, occ, o, spacing = sphere64
     vw, fw, cw = TP._extract_mesh(field, occ, o, spacing)
     assert len(vw) > 1000
     for slab in (16, 21):
@@ -144,6 +153,44 @@ def test_slab_extraction_matches_whole_grid():
         ow, os_ = np.lexsort(cw.T), np.lexsort(cs.T)
         np.testing.assert_array_equal(cw[ow], cs[os_])
         np.testing.assert_allclose(vw[ow], vs[os_], atol=1e-5)
+
+
+@pytest.mark.parametrize("slab", [16, 21])
+def test_slab_extraction_matches_numpy_weld(sphere64, slab):
+    """The device weld (one int64 cell key, torch.unique) gives the host
+    numpy weld's arrays (np.unique over the cell rows) bit for bit:
+    vertices, faces and cells, dtypes included."""
+    field, occ, o, spacing = sphere64
+    got = TP._extract_mesh_slabs(field, occ, o, spacing, slab=slab,
+                                 return_cells=True)
+    want = slabs_numpy(field, occ, o, spacing, slab)
+    assert [a.dtype for a in got] == [np.float32, np.int64, np.int64]
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    v, f = TP._extract_mesh_slabs(field, occ, o, spacing, slab=slab)
+    assert np.array_equal(v, want[0]) and np.array_equal(f, want[1])
+
+
+def test_weld_keeps_first_occurrence_and_drops_collapsed_faces():
+    """Hand-built slab output: cells (4, 0, 1) and (3, 2, 2) come twice, as
+    a halo layer's do, at positions one float step apart; the face over
+    rows 0, 3 and 1 collapses once 0 and 3 are one vertex. Both welds keep
+    the first occurrence's position and drop that face alone."""
+    C = np.array([[4, 0, 1], [3, 2, 2], [3, 2, 1], [4, 0, 1], [3, 2, 2],
+                  [5, 1, 0]], np.int64)
+    V = np.arange(18, dtype=np.float32).reshape(6, 3) / 7
+    V[3] = np.nextafter(V[0], np.float32(9))
+    V[4] = np.nextafter(V[1], np.float32(-9))
+    F = np.array([[0, 1, 2], [3, 4, 5], [0, 3, 1], [2, 4, 5]], np.int64)
+    assert not np.array_equal(V[3], V[0]) and not np.array_equal(V[4], V[1])
+    want = weld_numpy(V, C, F)
+    got = [t.numpy() for t in TP._weld(torch.as_tensor(V), torch.as_tensor(C),
+                                       torch.as_tensor(F), (3, 3))]
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    assert np.array_equal(got[0], V[[2, 1, 0, 5]])
+    assert np.array_equal(got[1], [[2, 1, 0], [2, 1, 3], [0, 1, 3]])
+    assert np.array_equal(got[2], C[[2, 1, 0, 5]])
 
 
 def test_slab_extraction_keeps_a_sheet_past_the_jax_caps():

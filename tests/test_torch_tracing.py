@@ -174,7 +174,8 @@ def test_weld_counters_on_a_slab_extraction(z_sheet, halo_copies):
     (a 384-wide grid, slabs of 32): inside one slab no vertex is
     duplicated; in the cell layer both slabs hold (31, the first slab's
     last and the second's halo) every vertex comes into the weld twice.
-    The weld's count is the welded mesh's either way."""
+    The weld's count is the welded mesh's either way, and the welded mesh
+    comes to the host in two copies (vertices, faces)."""
     from multiviewstitch_tpu_torch.ops import poisson as TP
     gz, g = 40, 384
     z = torch.arange(gz, dtype=torch.float32)
@@ -191,6 +192,7 @@ def test_weld_counters_on_a_slab_extraction(z_sheet, halo_copies):
     assert c["poisson.slabs"] == 2
     assert c["poisson.vertices"] == len(vs)
     assert c["poisson.slab_vertices"] == (1 + halo_copies) * len(vs)
+    assert c["poisson.extract_copies"] == 2
     names = [s.name for s in job.spans]
     assert names.count("poisson.slab") == 2 and names.count(
         "poisson.weld") == 1
